@@ -1,0 +1,170 @@
+"""Weight bridge between the JAX package's variables and this port's models.
+
+Counterpart of :mod:`openset_imagenet_tpu.convert`, without jax: it works
+on nested dicts of numpy arrays (``{"params": ..., "batch_stats": ...}``
+as ``jax.device_get`` returns them) and on ``state_dict``-style mappings.
+
+Key mapping (flax path -> torch key), as ``convert._torch_key``:
+  conv_init/kernel                  resnet_base.conv1.weight  (HWIO->OIHW)
+  bn_init.{scale,bias,mean,var}     resnet_base.bn1.{weight,bias,running_*}
+  stage{i}_block{j}/Conv_{k}        resnet_base.layer{i}.{j-1}.conv{k+1}
+  stage{i}_block{j}/bn{k}           resnet_base.layer{i}.{j-1}.bn{k}
+  .../downsample_conv, downsample_bn  ....downsample.0 / .1
+  fc/{kernel,bias}                  resnet_base.fc.*    ([in,out]->[out,in])
+  logits/{kernel,bias}              logits.*
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+
+_BN_STAT = {"scale": "weight", "bias": "bias",
+            "mean": "running_mean", "var": "running_var"}
+_BN_LEAF = {v: k for k, v in _BN_STAT.items()}
+_BATCH_STATS = ("mean", "var")
+
+
+def strip_module_prefix(state_dict: Mapping[str, object]) -> dict:
+    """Remove a DDP ``module.`` prefix (reference ``train.py:80-87``)."""
+    if state_dict and next(iter(state_dict)).startswith("module."):
+        return {k[len("module."):]: v for k, v in state_dict.items()}
+    return dict(state_dict)
+
+
+def torch_key(flax_path: Tuple[str, ...]) -> str:
+    """Torch ``state_dict`` key for one flax variable path."""
+    parts = list(flax_path)
+    leaf = parts[-1]
+    if parts[0] == "conv_init":
+        return "resnet_base.conv1.weight"
+    if parts[0] == "bn_init":
+        return f"resnet_base.bn1.{_BN_STAT[leaf]}"
+    if parts[0] in ("fc", "logits"):
+        prefix = "resnet_base.fc" if parts[0] == "fc" else "logits"
+        return f"{prefix}.{'weight' if leaf == 'kernel' else 'bias'}"
+    m = re.fullmatch(r"stage(\d+)_block(\d+)", parts[0])
+    if m:
+        stage, block = int(m.group(1)), int(m.group(2)) - 1
+        mod = parts[1]
+        if mod.startswith("Conv_"):
+            sub = f"conv{int(mod[5:]) + 1}.weight"
+        elif mod == "downsample_conv":
+            sub = "downsample.0.weight"
+        elif mod == "downsample_bn":
+            sub = f"downsample.1.{_BN_STAT[leaf]}"
+        elif mod.startswith("bn"):
+            sub = f"{mod}.{_BN_STAT[leaf]}"
+        else:
+            raise KeyError(f"unmapped flax module {flax_path}")
+        return f"resnet_base.layer{stage}.{block}.{sub}"
+    raise KeyError(f"unmapped flax path {flax_path}")
+
+
+def flax_path(key: str) -> Tuple[str, ...]:
+    """Inverse of :func:`torch_key`."""
+    if key == "resnet_base.conv1.weight":
+        return ("conv_init", "kernel")
+    m = re.fullmatch(r"resnet_base\.bn1\.(\w+)", key)
+    if m:
+        return ("bn_init", _BN_LEAF[m.group(1)])
+    m = re.fullmatch(r"(resnet_base\.fc|logits)\.(weight|bias)", key)
+    if m:
+        head = "fc" if m.group(1) == "resnet_base.fc" else "logits"
+        return (head, "kernel" if m.group(2) == "weight" else "bias")
+    m = re.fullmatch(r"resnet_base\.layer(\d+)\.(\d+)\.(.+)", key)
+    if m:
+        block = f"stage{m.group(1)}_block{int(m.group(2)) + 1}"
+        sub = m.group(3)
+        c = re.fullmatch(r"conv(\d+)\.weight", sub)
+        if c:
+            return (block, f"Conv_{int(c.group(1)) - 1}", "kernel")
+        if sub == "downsample.0.weight":
+            return (block, "downsample_conv", "kernel")
+        d = re.fullmatch(r"downsample\.1\.(\w+)", sub)
+        if d:
+            return (block, "downsample_bn", _BN_LEAF[d.group(1)])
+        b = re.fullmatch(r"(bn\d+)\.(\w+)", sub)
+        if b:
+            return (block, b.group(1), _BN_LEAF[b.group(2)])
+    raise KeyError(f"unmapped torch key {key!r}")
+
+
+def _walk(tree, prefix=()):
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _walk(value, prefix + (name,))
+        else:
+            yield prefix + (name,), value
+
+
+def variables_to_state_dict(variables) -> Dict[str, np.ndarray]:
+    """flax ``{"params", "batch_stats"}`` (numpy leaves) -> torch keys.
+
+    Kernels are transposed (HWIO -> OIHW, ``[in, out]`` -> ``[out, in]``);
+    values come back as contiguous float32 numpy arrays.
+    """
+    out: Dict[str, np.ndarray] = {}
+    for coll in ("params", "batch_stats"):
+        for path, leaf in _walk(variables.get(coll, {})):
+            t = np.asarray(leaf, dtype=np.float32)
+            if path[-1] == "kernel":
+                t = (np.transpose(t, (3, 2, 0, 1)) if t.ndim == 4
+                     else np.transpose(t, (1, 0)))
+            out[torch_key(path)] = np.ascontiguousarray(t)
+    return out
+
+
+def state_dict_to_variables(state_dict) -> dict:
+    """Torch-keyed arrays -> flax ``{"params", "batch_stats"}`` numpy tree.
+
+    Accepts torch tensors or numpy arrays and a DDP ``module.`` prefix;
+    ``num_batches_tracked`` entries (torch BN bookkeeping) are skipped.
+    """
+    variables = {"params": {}, "batch_stats": {}}
+    for key, value in strip_module_prefix(state_dict).items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        t = _to_numpy(value)
+        path = flax_path(key)
+        if path[-1] == "kernel":
+            t = (np.transpose(t, (2, 3, 1, 0)) if t.ndim == 4
+                 else np.transpose(t, (1, 0)))
+        coll = "batch_stats" if path[-1] in _BATCH_STATS else "params"
+        node = variables[coll]
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = np.ascontiguousarray(t)
+    return variables
+
+
+def _to_numpy(value) -> np.ndarray:
+    if hasattr(value, "detach"):
+        value = value.detach().cpu().numpy()
+    return np.asarray(value, dtype=np.float32)
+
+
+def load_into(model, state_dict) -> None:
+    """Copy a reference-layout ``state_dict`` into ``model`` in place.
+
+    Every key of the model must be present with the same shape: a missing
+    key raises ``KeyError`` and a shape mismatch ``ValueError``, as the
+    JAX bridge does (``convert.py:109-117``).  Extra keys (e.g. torch's
+    ``num_batches_tracked``) are ignored.
+    """
+    import torch
+
+    source = strip_module_prefix(state_dict)
+    with torch.no_grad():
+        for key, target in model.state_dict(keep_vars=True).items():
+            if key not in source:
+                raise KeyError(f"checkpoint is missing {key}")
+            value = source[key]
+            if not isinstance(value, torch.Tensor):
+                value = torch.from_numpy(np.asarray(value, np.float32))
+            if tuple(value.shape) != tuple(target.shape):
+                raise ValueError(f"{key}: shape {tuple(value.shape)} != "
+                                 f"expected {tuple(target.shape)}")
+            target.copy_(value)

@@ -1,0 +1,320 @@
+"""Two-head ResNet family in PyTorch, forward/eval only.
+
+Counterpart of :mod:`openset_imagenet_tpu.models.resnet`: a ResNet backbone
+whose last fully-connected layer is ``fc`` (``2048 -> fc_layer_dim``, the
+deep features) followed by a ``logits`` head; ``forward`` returns
+``(logits, features)`` as float32.
+
+The arithmetic follows the JAX model, not torchvision, where the two
+differ:
+
+* Public layout is NHWC (``[B, H, W, 3]`` float images), as in the JAX
+  package; inside, the batch is permuted to NCHW, which for an NHWC tensor
+  is already the ``channels_last`` memory format.
+* The input, the conv and dense kernels and every activation are cast to
+  the compute dtype (bfloat16 by default) exactly where flax casts them;
+  parameters stay float32.  ``torch.autocast`` is not used: it rounds in
+  other places.  Dense layers add their bias after the matmul has been
+  rounded, as flax does.
+* Stem 7x7/2 with padding (3, 3); max-pool 3/2 with padding (1, 1);
+  v1.5 bottleneck with the stride on the 3x3 conv; every 3x3 conv pads
+  (1, 1) (never flax "SAME"); the downsample is a strided 1x1 conv + BN;
+  the mean pool is over H and W.
+* Batch-norm runs on running statistics in the rounding form the JAX
+  model picks from ``bn_stats_rows`` (see :mod:`.norm`).
+
+``state_dict`` keys are the reference torch layout (``resnet_base.conv1
+.weight`` ... ``resnet_base.fc.*``, ``logits.*``), so reference checkpoints
+and ``openset_imagenet_tpu.convert.save_reference_checkpoint`` files load
+directly.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .norm import BatchNorm, SubsetBatchNorm
+
+
+class Conv(nn.Module):
+    """Bias-free conv; OIHW float32 kernel, computed in the input's dtype."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 padding: int = 0, groups: int = 1, device=None):
+        super().__init__()
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.weight = nn.Parameter(torch.empty(
+            cout, cin // groups, kernel, kernel, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight.to(x.dtype), None, self.stride,
+                        self.padding, 1, self.groups)
+
+
+class Dense(nn.Module):
+    """``[out, in]`` float32 kernel; matmul rounded, then bias added."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, device=device))
+        self.bias = (nn.Parameter(torch.zeros(cout, device=device))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, self.weight.to(x.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y
+
+
+class BasicBlock(nn.Module):
+    """3x3 -> 3x3 residual block (expansion 1) for resnet18/34 and tiny."""
+
+    expansion = 1
+
+    def __init__(self, cin: int, filters: int, stride: int, norm,
+                 groups: int = 1, base_width: int = 64, device=None):
+        super().__init__()
+        if groups != 1 or base_width != 64:
+            raise ValueError("groups/base_width require Bottleneck variants "
+                             "(resnext*/wide_resnet*)")
+        self.conv1 = Conv(cin, filters, 3, stride, 1, device=device)
+        self.bn1 = norm(filters, device=device)
+        self.conv2 = Conv(filters, filters, 3, 1, 1, device=device)
+        self.bn2 = norm(filters, device=device)
+        self.downsample = None
+        if stride != 1 or cin != filters:
+            self.downsample = nn.Sequential(
+                Conv(cin, filters, 1, stride, device=device),
+                norm(filters, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+class Bottleneck(nn.Module):
+    """ResNet v1.5 bottleneck 1x1 -> 3x3(stride, groups) -> 1x1, expansion 4.
+
+    Inner width ``int(filters * base_width / 64) * groups`` as in
+    torchvision (ResNeXt: groups=32; Wide-ResNet: base_width=128).
+    """
+
+    expansion = 4
+
+    def __init__(self, cin: int, filters: int, stride: int, norm,
+                 groups: int = 1, base_width: int = 64, device=None):
+        super().__init__()
+        width = int(filters * (base_width / 64.0)) * groups
+        out = filters * 4
+        self.conv1 = Conv(cin, width, 1, device=device)
+        self.bn1 = norm(width, device=device)
+        self.conv2 = Conv(width, width, 3, stride, 1, groups, device=device)
+        self.bn2 = norm(width, device=device)
+        self.conv3 = Conv(width, out, 1, device=device)
+        self.bn3 = norm(out, device=device)
+        self.downsample = None
+        if stride != 1 or cin != out:
+            self.downsample = nn.Sequential(
+                Conv(cin, out, 1, stride, device=device),
+                norm(out, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+class ResNetBase(nn.Module):
+    """Backbone with the reference's attribute names (``conv1`` ... ``fc``)."""
+
+    def __init__(self, block, stage_sizes: Sequence[int], width: int,
+                 groups: int, base_width: int, fc_layer_dim: int, norm,
+                 device=None):
+        super().__init__()
+        self.conv1 = Conv(3, width, 7, 2, 3, device=device)
+        self.bn1 = norm(width, device=device)
+        cin = width
+        for i, count in enumerate(stage_sizes):
+            blocks = []
+            for j in range(count):
+                filters = width * 2 ** i
+                stride = 2 if i > 0 and j == 0 else 1
+                blocks.append(block(cin, filters, stride, norm, groups,
+                                    base_width, device=device))
+                cin = filters * block.expansion
+            self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
+        self.n_stages = len(stage_sizes)
+        self.fc = Dense(cin, fc_layer_dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        for i in range(self.n_stages):
+            x = getattr(self, f"layer{i + 1}")(x)
+        return self.fc(x.mean(dim=(2, 3)))
+
+
+# ROADMAP Queue 1 items that bring each deferred JAX model option.
+_DEFERRED = {
+    "remat": "item 9 (experimental knobs)",
+    "fused_blocks": "item 9 (experimental knobs)",
+    "boundary_mask": "item 9 (experimental knobs)",
+    "folded": "item 6 (inference optimization)",
+    "quantized": "item 6 (inference optimization)",
+}
+
+
+class ResNet50(nn.Module):
+    """Two-head ResNet: ``forward(images) -> (logits, features)``.
+
+    Args mirror the JAX ``ResNet50``: ``fc_layer_dim`` (features head),
+    ``out_features`` (logits head), ``logit_bias``, ``dtype`` (compute
+    dtype), ``stage_sizes``/``block``/``width``/``groups``/``base_width``
+    (variant geometry) and ``bn_stats_rows`` (selects the batch-norm
+    rounding form).
+
+    ``space_to_depth`` stores the same ``[7, 7, 3, F]`` stem kernel as the
+    JAX model's ``SpaceToDepthStem`` and computes the identical arithmetic,
+    so it is run here as the plain 7x7/2 conv.  ``dot_1x1`` is the same
+    math as the 1x1 conv and runs as the conv.  ``remat``,
+    ``fused_blocks``, ``boundary_mask``, ``folded`` and ``quantized`` are
+    not ported yet and raise ``NotImplementedError``.
+    """
+
+    def __init__(self, fc_layer_dim: int = 1000, out_features: int = 1000,
+                 logit_bias: bool = True, dtype: torch.dtype = torch.bfloat16,
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3), block=None,
+                 width: int = 64, groups: int = 1, base_width: int = 64,
+                 bn_stats_rows: int = 0, space_to_depth: bool = False,
+                 dot_1x1: bool = False, remat=False,
+                 fused_blocks: bool = False, boundary_mask: bool = False,
+                 folded: bool = False, quantized: bool = False,
+                 device=None):
+        super().__init__()
+        requested = dict(remat=remat, fused_blocks=fused_blocks,
+                         boundary_mask=boundary_mask, folded=folded,
+                         quantized=quantized)
+        for name, value in requested.items():
+            if value not in (False, None, "none"):
+                raise NotImplementedError(
+                    f"model option {name}={value!r} is not ported yet "
+                    f"(ROADMAP Queue 1 {_DEFERRED[name]})")
+        del space_to_depth, dot_1x1  # same arithmetic as the plain convs
+        self.dtype = dtype
+        norm = SubsetBatchNorm if bn_stats_rows > 0 else BatchNorm
+        self.resnet_base = ResNetBase(
+            block or Bottleneck, stage_sizes, width, groups, base_width,
+            fc_layer_dim, norm, device=device)
+        self.logits = Dense(fc_layer_dim, out_features, bias=logit_bias,
+                            device=device)
+
+    def forward(self, images: torch.Tensor):
+        """``images``: float ``[B, H, W, 3]`` -> float32 (logits, features)."""
+        x = images.permute(0, 3, 1, 2).to(self.dtype)
+        features = self.resnet_base(x)
+        logits = self.logits(features)
+        return logits.float(), features.float()
+
+
+_VARIANTS = {
+    "resnet18": dict(stage_sizes=(2, 2, 2, 2), block=BasicBlock),
+    "resnet34": dict(stage_sizes=(3, 4, 6, 3), block=BasicBlock),
+    "resnet50": dict(stage_sizes=(3, 4, 6, 3), block=Bottleneck),
+    "resnet101": dict(stage_sizes=(3, 4, 23, 3), block=Bottleneck),
+    "resnet152": dict(stage_sizes=(3, 8, 36, 3), block=Bottleneck),
+    "resnext50_32x4d": dict(stage_sizes=(3, 4, 6, 3), block=Bottleneck,
+                            groups=32, base_width=4),
+    "resnext101_32x8d": dict(stage_sizes=(3, 4, 23, 3), block=Bottleneck,
+                             groups=32, base_width=8),
+    "wide_resnet50_2": dict(stage_sizes=(3, 4, 6, 3), block=Bottleneck,
+                            base_width=128),
+    "wide_resnet101_2": dict(stage_sizes=(3, 4, 23, 3), block=Bottleneck,
+                             base_width=128),
+    "tiny": dict(stage_sizes=(1, 1, 1, 1), block=BasicBlock, width=8),
+    "tiny50": dict(stage_sizes=(1, 1, 1, 1), block=Bottleneck, width=8),
+    "tinyx": dict(stage_sizes=(1, 1, 1, 1), block=Bottleneck, width=8,
+                  groups=4, base_width=32),
+}
+
+
+def _trunc_normal(shape, std: float, generator) -> torch.Tensor:
+    """N(0, std) truncated at two standard deviations (inverse-CDF draw)."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    u = lo + (1.0 - 2.0 * lo) * u
+    z = torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)
+    return (z * std).float()
+
+
+@torch.no_grad()
+def init_weights(model: ResNet50, generator: torch.Generator) -> ResNet50:
+    """Initialise like the JAX model, drawing from ``generator`` (CPU).
+
+    Conv kernels: variance-scaling 2.0, fan-out, truncated normal.  Dense
+    kernels: U(+-sqrt(1/fan_in)); biases zero.  Batch-norm scale one (zero
+    for the last norm of every block), bias zero, running mean zero,
+    running variance one.  The draws differ from ``jax.random``'s; tests
+    that compare the two packages share weights through :mod:`..convert`.
+    """
+    for module in model.modules():
+        if isinstance(module, Conv):
+            w = module.weight
+            fan_out = w.shape[0] * w.shape[2] * w.shape[3]
+            std = math.sqrt(2.0 / fan_out) / 0.87962566103423978
+            w.copy_(_trunc_normal(w.shape, std, generator))
+        elif isinstance(module, Dense):
+            limit = math.sqrt(1.0 / module.weight.shape[1])
+            u = torch.rand(module.weight.shape, generator=generator)
+            module.weight.copy_((2.0 * u - 1.0) * limit)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, BatchNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+            module.running_mean.zero_()
+            module.running_var.fill_(1.0)
+    for module in model.modules():
+        if isinstance(module, Bottleneck):
+            module.bn3.weight.zero_()
+        elif isinstance(module, BasicBlock):
+            module.bn2.weight.zero_()
+    return model
+
+
+def build_resnet(variant: str = "resnet50", *, fc_layer_dim: int,
+                 out_features: int, logit_bias: bool = False,
+                 dtype: torch.dtype = torch.bfloat16, bn_stats_rows: int = 0,
+                 space_to_depth: bool = False, remat=False,
+                 dot_1x1: bool = False, fused_blocks: bool = False,
+                 boundary_mask: bool = False, device=None,
+                 generator: Optional[torch.Generator] = None) -> ResNet50:
+    """Construct a two-head ResNet by variant name, in eval mode.
+
+    Weights are drawn by :func:`init_weights` from ``generator`` (seed 0
+    when ``None``); on the ``meta`` device nothing is drawn.
+    """
+    if variant not in _VARIANTS:
+        raise ValueError(
+            f"unknown variant {variant!r}; choose from {sorted(_VARIANTS)}")
+    model = ResNet50(fc_layer_dim=fc_layer_dim, out_features=out_features,
+                     logit_bias=logit_bias, dtype=dtype,
+                     bn_stats_rows=bn_stats_rows,
+                     space_to_depth=space_to_depth, remat=remat,
+                     dot_1x1=dot_1x1, fused_blocks=fused_blocks,
+                     boundary_mask=boundary_mask, device=device,
+                     **_VARIANTS[variant])
+    if torch.device(device or "cpu").type != "meta":
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init_weights(model, generator)
+    return model.eval()

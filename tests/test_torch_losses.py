@@ -1,0 +1,145 @@
+"""PyTorch port losses against the JAX package (CPU).
+
+The port's plain losses (``ops.losses``) and its fused wrappers
+(``ops.fused_loss``, which run their kernels' plain versions on CPU
+tensors) are held against JAX's ``ops.losses`` and its Pallas kernels in
+interpreter mode, on the same numpy inputs.  Tolerance: rtol 1e-5 on the
+mean (float32 sums in another order); row counts exact, the garbage
+loss's summed class weights within rtol 1e-6.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openset_imagenet_tpu.ops import fused_loss as jfl
+from openset_imagenet_tpu.ops import losses as jl
+from openset_imagenet_tpu_torch.ops import fused_loss as pfl
+from openset_imagenet_tpu_torch.ops import losses as plosses
+
+
+def make_batch(b=16, c=116, seed=0, label_low=-1):
+    rng = np.random.default_rng(seed)
+    logits = (rng.normal(size=(b, c)) * 3).astype(np.float32)
+    labels = rng.integers(label_low, c, b).astype(np.int32)
+    mask = (rng.random(b) > 0.2).astype(np.float32)
+    weights = rng.uniform(0.2, 2.0, c).astype(np.float32)
+    return logits, labels, mask, weights
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _check(got, ref, loss="entropic"):
+    (gm, gc), (rm, rc) = got, ref
+    if loss == "garbage":
+        assert float(gc) == pytest.approx(float(rc), rel=1e-6, abs=0)
+    else:
+        assert float(gc) == float(rc)
+    np.testing.assert_allclose(float(gm), float(rm), rtol=1e-5, atol=1e-7)
+
+
+def _port_all(loss, logits, labels, mask, weights, w):
+    """(plain, fused-wrapper) results of the port for one regime."""
+    lg, lb, mk, wt = _t(logits, labels, mask, weights)
+    if loss == "entropic":
+        return (plosses.entropic_openset_loss(lg, lb, w, mk),
+                pfl.entropic_openset_loss_fused(lg, lb, mk, w))
+    if loss == "softmax":
+        return (plosses.softmax_loss(lg, lb, mk),
+                pfl.softmax_loss_fused(lg, lb, mk))
+    return (plosses.garbage_loss(lg, lb, wt, mk),
+            pfl.garbage_loss_fused(lg, lb, wt, mk))
+
+
+def _jax_all(loss, logits, labels, mask, weights, w):
+    lg, lb, mk = jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(mask)
+    wt = jnp.asarray(weights)
+    if loss == "entropic":
+        return (jl.entropic_openset_loss(lg, lb, w, mk),
+                jfl.entropic_openset_loss_fused(lg, lb, mk, w))
+    if loss == "softmax":
+        return (jl.softmax_loss(lg, lb, mk),
+                jfl.softmax_loss_fused(lg, lb, mk))
+    return (jl.garbage_loss(lg, lb, wt, mk),
+            jfl.garbage_loss_fused(lg, lb, wt, mk))
+
+
+@pytest.mark.parametrize("c", [8, 116, 128, 1000])
+@pytest.mark.parametrize("loss,w", [("entropic", 1.0), ("entropic", 0.5),
+                                    ("softmax", 1.0), ("garbage", 1.0)])
+def test_losses_match_jax(loss, w, c):
+    batch = make_batch(c=c, seed=c, label_low=0 if loss == "garbage" else -1)
+    port_plain, port_fused = _port_all(loss, *batch, w)
+    jax_plain, jax_fused = _jax_all(loss, *batch, w)
+    _check(port_plain, jax_plain, loss)
+    _check(port_fused, jax_fused, loss)
+    _check(port_fused, port_plain, loss)
+
+
+@pytest.mark.parametrize("loss", ["entropic", "softmax", "garbage"])
+@pytest.mark.parametrize("case", ["all_negative", "all_masked",
+                                  "masked_tail", "multiblock"])
+def test_edge_batches_match_jax(loss, case):
+    b = 600 if case == "multiblock" else 64
+    logits, labels, mask, weights = make_batch(b=b, c=117, seed=7)
+    if loss == "garbage":
+        labels = np.abs(labels)
+    if case == "all_negative" and loss != "garbage":
+        labels = -np.ones_like(labels)
+    if case == "all_masked":
+        mask = np.zeros_like(mask)
+    if case == "masked_tail":
+        mask = (np.arange(b) < 37).astype(np.float32)
+    port_plain, port_fused = _port_all(loss, logits, labels, mask, weights,
+                                       0.5)
+    jax_plain, jax_fused = _jax_all(loss, logits, labels, mask, weights, 0.5)
+    _check(port_plain, jax_plain, loss)
+    _check(port_fused, jax_fused, loss)
+
+
+def test_masked_rows_contribute_nothing():
+    logits, labels, _, _ = make_batch(b=8, c=16)
+    lg, lb = _t(logits, labels)
+    mask = torch.tensor([1, 1, 1, 1, 0, 0, 0, 0], dtype=torch.float32)
+    head = pfl.entropic_openset_loss_fused(lg[:4], lb[:4], torch.ones(4))
+    masked = pfl.entropic_openset_loss_fused(lg, lb, mask)
+    assert float(masked[1]) == 4
+    np.testing.assert_allclose(float(masked[0]), float(head[0]), rtol=1e-6)
+
+
+def test_cpu_tensors_never_launch_kernels():
+    logits, labels, mask, weights = make_batch(c=116)
+    before = dict(pfl.LAUNCHES)
+    _port_all("entropic", logits, labels, mask, weights, 1.0)
+    _port_all("softmax", logits, labels, mask, weights, 1.0)
+    _port_all("garbage", logits, np.abs(labels), mask, weights, 1.0)
+    assert pfl.LAUNCHES == before
+
+
+def test_kernel_wrappers_route_cpu_to_plain_and_refuse_other_devices():
+    logits, labels, mask, weights = make_batch(c=116)
+    lg, lb, mk = _t(logits, labels, mask)
+    for got, ref in ((pfl.entropic_sums(lg, lb, mk, 0.5),
+                      pfl.entropic_sums_plain(lg, lb, mk, 0.5)),
+                     (pfl.ce_sums(lg, lb, mk), pfl.ce_sums_plain(lg, lb, mk))):
+        assert [float(v) for v in got] == [float(v) for v in ref]
+    meta = torch.empty((4, 8), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        pfl.entropic_sums(meta, torch.zeros(4, dtype=torch.int32,
+                                            device="meta"),
+                          torch.ones(4, device="meta"), 1.0)
+
+
+def test_average_meter_matches_jax():
+    from openset_imagenet_tpu.ops.losses import AverageMeter as JMeter
+
+    ours, ref = plosses.AverageMeter(), JMeter()
+    for val, n in [(1.5, 4), (0.5, 2), (3.0, 0)]:
+        ours.update(val, n)
+        ref.update(val, n)
+    assert (ours.val, ours.sum, ours.count, ours.avg) == \
+        (ref.val, ref.sum, ref.count, ref.avg)
+    assert repr(ours) == repr(ref)

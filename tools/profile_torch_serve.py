@@ -1,0 +1,130 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's serving forward spends its time on the GPU.
+
+    python tools/profile_torch_serve.py [--batch 64 256]
+                                        [--trace-dir chiprun_out]
+
+Builds a full-width two-head resnet50 (116 classes, random weights from
+seed 0) exactly as ``OpenSetPredictor`` holds it (bf16 compute,
+channels_last, CUDA), and runs the forward step (``train.
+make_forward_step``) on uint8 ``[B, 224, 224, 3]`` batches already on the
+card.  For each batch size it prints the forward's median milliseconds
+(CUDA events), then one ``torch.profiler`` window of five forwards:
+device-busy time, the idle share of the window, kernel launches per
+forward, and device time by kernel category and by kernel.  A Chrome
+trace per batch size goes to ``--trace-dir``.  Needs a CUDA device.
+"""
+
+import argparse
+import collections
+import pathlib
+import statistics
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+REPS = 5
+TOP = 12
+
+# Kernel-name fragments -> category, first match wins.
+CATEGORIES = (
+    ("pool", ("pool",)),
+    ("conv", ("fprop", "conv", "implicit", "xmma", "dgrad", "nchw", "nhwc")),
+    ("gemm", ("gemm", "cutlass", "cublas")),
+    ("reduce/softmax", ("reduce", "softmax")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("copy", ("copy", "memcpy", "memset")),
+)
+
+
+def category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "other"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch", type=int, nargs="+", default=[64, 256])
+    ap.add_argument("--trace-dir", default="chiprun_out")
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from openset_imagenet_tpu_torch.models.resnet import build_resnet
+    from openset_imagenet_tpu_torch.train import make_forward_step
+
+    if not torch.cuda.is_available():
+        print("profile_torch_serve: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"device {torch.cuda.get_device_name(0)}")
+    model = build_resnet("resnet50", fc_layer_dim=116, out_features=116,
+                         generator=torch.Generator().manual_seed(0))
+    model = model.cuda().to(memory_format=torch.channels_last)
+    forward = make_forward_step()
+    trace_dir = pathlib.Path(args.trace_dir)
+    trace_dir.mkdir(parents=True, exist_ok=True)
+
+    for b in args.batch:
+        images = torch.from_numpy(np.random.default_rng(b).integers(
+            0, 256, (b, 224, 224, 3), np.uint8)).cuda()
+        times = []
+        for i in range(REPS + 3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            forward(model, images)
+            end.record()
+            end.synchronize()
+            if i >= 3:
+                times.append(start.elapsed_time(end))
+        fwd_ms = statistics.median(times)
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(REPS):
+                forward(model, images)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(str(trace_dir / f"torch_serve_b{b}.json"))
+
+        by_kernel = collections.Counter()
+        launches = collections.Counter()
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                us = evt.time_range.elapsed_us()
+                by_kernel[evt.name] += us
+                launches[evt.name] += 1
+        busy_ms = sum(by_kernel.values()) / 1e3
+        by_cat = collections.Counter()
+        for name, us in by_kernel.items():
+            by_cat[category(name)] += us
+        print(f"\nbatch {b}: forward {fwd_ms:.3f} ms median of {len(times)}"
+              f" = {b / fwd_ms * 1e3:.1f} imgs/s")
+        print(f"  profiled window: {REPS} forwards, wall {wall_ms:.3f}"
+              f" ms, device busy {busy_ms:.3f} ms, idle share "
+              f"{max(0.0, 1 - busy_ms / wall_ms):.3f}, kernel launches per "
+              f"forward {sum(launches.values()) / REPS:.0f}")
+        if not by_kernel:
+            print("  the profiler recorded no device time")
+            continue
+        for cat, us in by_cat.most_common():
+            print(f"  {cat:15s} {us / 1e3 / REPS:9.3f} ms/forward "
+                  f"{us / 1e3 / busy_ms:6.1%}")
+        print(f"  top {TOP} kernels (ms/forward, launches/forward):")
+        for name, us in by_kernel.most_common(TOP):
+            print(f"    {us / 1e3 / REPS:8.3f}  "
+                  f"{launches[name] / REPS:5.0f}  {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
