@@ -7,10 +7,14 @@ It imports ``torch`` and ``numpy`` only -- never ``jax`` or the JAX
 package -- and nothing here is imported before it is first used: the
 public names below resolve lazily on attribute access.
 
-What runs today is the serving slice: the two-head ResNet in eval mode,
-the weight bridge, the three losses (the entropic and weighted-CE
-forwards as hand-written Triton kernels on CUDA tensors), the confidence
-metrics, the validation step and :class:`OpenSetPredictor`.
+What runs today is the serving slice and the trainer below the worker:
+the two-head ResNet (eval and train mode, full-batch and ghost
+batch-norm), the weight bridge (parameters and optimizer state), the
+three losses (forwards and backwards as hand-written Triton kernels on
+CUDA tensors), the confidence metrics, the dataset index, the input
+pipeline, the optimizer and schedules, the train and eval steps and
+epoch loops, ``.pth`` checkpoints with optimizer state and
+:class:`OpenSetPredictor`.
 """
 
 from __future__ import annotations
@@ -29,6 +33,13 @@ _EXPORTS = {
     "garbage_loss_fused": "ops.fused_loss",
     "confidence": "ops.metrics",
     "OpenSetPredictor": "inference",
+    "ImagenetDataset": "dataset",
+    "InputPipeline": "pipeline",
+    "pipeline_from_dataset": "pipeline",
+    "build_optimizer": "train",
+    "create_state": "train",
+    "make_train_step": "train",
+    "train_epoch": "train",
 }
 
 __all__ = sorted(_EXPORTS)

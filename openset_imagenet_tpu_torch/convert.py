@@ -12,12 +12,17 @@ Key mapping (flax path -> torch key), as ``convert._torch_key``:
   .../downsample_conv, downsample_bn  ....downsample.0 / .1
   fc/{kernel,bias}                  resnet_base.fc.*    ([in,out]->[out,in])
   logits/{kernel,bias}              logits.*
+
+:func:`load_opt_state` carries an optax optimizer state across with the
+same mapping: Adam's ``ScaleByAdamState(count, mu, nu)`` becomes each
+parameter's ``step`` / ``exp_avg`` / ``exp_avg_sq`` in ``torch.optim.Adam``,
+SGD's ``TraceState(trace)`` its ``momentum_buffer`` in ``torch.optim.SGD``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -168,3 +173,76 @@ def load_into(model, state_dict) -> None:
                 raise ValueError(f"{key}: shape {tuple(value.shape)} != "
                                  f"expected {tuple(target.shape)}")
             target.copy_(value)
+
+
+def _fields(node) -> Optional[dict]:
+    """A state node's fields: mappings, NamedTuples and tuples."""
+    if isinstance(node, Mapping):
+        return dict(node)
+    if hasattr(node, "_asdict"):
+        return node._asdict()
+    if isinstance(node, (tuple, list)):
+        return {str(i): v for i, v in enumerate(node)}
+    return None
+
+
+def _find_state(tree, names: Tuple[str, ...]) -> Optional[dict]:
+    """The first sub-state (depth first) that has every field in
+    ``names``."""
+    fields = _fields(tree)
+    if fields is None:
+        return None
+    if all(n in fields for n in names):
+        return fields
+    for child in fields.values():
+        found = _find_state(child, names)
+        if found is not None:
+            return found
+    return None
+
+
+def load_opt_state(optimizer, model, opt_state) -> None:
+    """Carry an optax Adam or SGD(momentum) state into ``optimizer``.
+
+    ``opt_state`` is the JAX ``TrainState.opt_state`` as numpy leaves
+    (``jax.device_get``), either as optax's tuple of NamedTuples or as
+    the ``{"0": {...}, ...}`` state dict of a JAX checkpoint.  Moments are
+    mapped and transposed like the parameters.  The update count that the
+    learning-rate schedule reads is ``TrainState.step``, set by the
+    caller.
+    """
+    import torch
+
+    params = dict(model.named_parameters())
+
+    def per_param(tree) -> Dict[str, np.ndarray]:
+        out = variables_to_state_dict({"params": tree})
+        if set(out) != set(params):
+            raise KeyError(f"optimizer state covers {sorted(set(out))[:3]}"
+                           f"..., the model {sorted(params)[:3]}...")
+        return out
+
+    def tensor(a, like):
+        return torch.from_numpy(a).to(like.device, like.dtype)
+
+    adam = _find_state(opt_state, ("count", "mu", "nu"))
+    if isinstance(optimizer, torch.optim.Adam):
+        if adam is None:
+            raise ValueError("no ScaleByAdamState in the optax state")
+        count = float(np.asarray(adam["count"]))
+        mu, nu = per_param(adam["mu"]), per_param(adam["nu"])
+        for key, p in params.items():
+            optimizer.state[p] = {
+                "step": torch.tensor(count, dtype=torch.float32),
+                "exp_avg": tensor(mu[key], p),
+                "exp_avg_sq": tensor(nu[key], p)}
+        return
+    if isinstance(optimizer, torch.optim.SGD):
+        trace = _find_state(opt_state, ("trace",))
+        if trace is None:
+            raise ValueError("no TraceState in the optax state")
+        buf = per_param(trace["trace"])
+        for key, p in params.items():
+            optimizer.state[p] = {"momentum_buffer": tensor(buf[key], p)}
+        return
+    raise TypeError(f"cannot carry optax state into {type(optimizer)}")

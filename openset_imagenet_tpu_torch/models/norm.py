@@ -1,26 +1,35 @@
-"""Eval-mode batch-norm in the two rounding forms of the JAX model.
+"""Batch-norm in the two rounding forms of the JAX model, eval and train.
 
-Counterpart of :mod:`openset_imagenet_tpu.models.norm`.  At inference a
-batch-norm is the per-channel affine map of its running statistics, but
-the JAX model rounds it to the compute dtype in two different places
-depending on which flax module built it:
+Counterpart of :mod:`openset_imagenet_tpu.models.norm` and of flax
+``nn.BatchNorm``.  The JAX model builds one of two flax modules depending
+on ``bn_stats_rows`` (``models/resnet.py:462-471`` of the JAX package),
+and they round to the compute dtype in different places:
 
-* :class:`BatchNorm` -- flax ``nn.BatchNorm`` (``model.bn_stats_rows == 0``,
-  the default and every predictor): ``(x - mean) * (rsqrt(var + eps) *
-  scale) + bias`` in float32, rounded once to the compute dtype.
-* :class:`SubsetBatchNorm` -- ``bn_stats_rows > 0``: ``mul`` and ``add``
-  are rounded to the compute dtype first and ``x * mul + add`` is computed
-  in that dtype (``norm.py:129-134`` of the JAX package).
+* ``stats_rows == 0`` -- flax ``nn.BatchNorm`` (the default and every
+  predictor): ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
+  float32, rounded once to the compute dtype.
+* ``stats_rows > 0`` -- ``SubsetBatchNorm``: ``mul`` and ``add`` are
+  rounded to the compute dtype first and ``x * mul + add`` is computed in
+  that dtype (``norm.py:129-134`` of the JAX package).
 
-``F.batch_norm`` matches neither in bfloat16, so the affine map is written
-out here.  Train-mode statistics (full-batch and ghost) land with the
-train step (ROADMAP Queue 1 item 2); until then a module in training mode
-raises.
+:class:`BatchNorm` holds both and picks the form from ``stats_rows``, so a
+model switches form and statistics window together (the ragged-tail step,
+:meth:`..resnet.ResNet50.stats_window`).
+
+In training mode the statistics come from the batch -- all rows, or only
+the first ``stats_rows`` rows (ghost batch-norm) -- promoted to float32,
+with the fast variance ``max(E[x^2] - E[x]^2, 0)`` as flax computes it.
+Gradients flow through the statistics (autograd of the written-out math),
+so only the rows inside the window get the statistics' share.  Each
+train-mode forward also updates the running statistics, outside autograd,
+as ``momentum * old + (1 - momentum) * new`` with the *biased* variance.
+``F.batch_norm(training=True)`` writes the unbiased variance and matches
+neither rounding form in bfloat16, so the math is written out here.
 
 Parameters and buffers keep the reference torch names (``weight``,
 ``bias``, ``running_mean``, ``running_var``) so ``state_dict`` keys match
 the reference checkpoints.  ``momentum`` is the flax convention (weight of
-the old running value, 0.9 == torch's 0.1); eval does not read it.
+the old running value, 0.9 == torch's 0.1).
 """
 
 from __future__ import annotations
@@ -33,11 +42,13 @@ BN_EPSILON = 1e-5
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` eval form over the channel dim of NCHW."""
+    """flax ``nn.BatchNorm`` / ``SubsetBatchNorm`` over the channels of NCHW."""
 
-    def __init__(self, features: int, *, eps: float = BN_EPSILON,
-                 momentum: float = BN_MOMENTUM, device=None):
+    def __init__(self, features: int, *, stats_rows: int = 0,
+                 eps: float = BN_EPSILON, momentum: float = BN_MOMENTUM,
+                 device=None):
         super().__init__()
+        self.stats_rows = int(stats_rows)
         self.eps = eps
         self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features, device=device))
@@ -47,31 +58,35 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var",
                              torch.ones(features, device=device))
 
-    def _check_eval(self):
-        if self.training:
-            raise NotImplementedError(
-                "train-mode batch-norm statistics land with the train step "
-                "(ROADMAP Queue 1 item 2); call .eval() to run on the "
-                "running statistics")
-
     @staticmethod
     def _channel(t: torch.Tensor) -> torch.Tensor:
         return t.view(1, -1, 1, 1)
 
+    def _batch_stats(self, x: torch.Tensor):
+        """Mean and biased fast variance of the window; updates the
+        running statistics."""
+        xs = x if self.stats_rows <= 0 else x[:self.stats_rows]
+        xs = xs.float()
+        mean = xs.mean(dim=(0, 2, 3))
+        mean2 = xs.square().mean(dim=(0, 2, 3))
+        var = torch.maximum(mean2 - mean.square(), mean2.new_zeros(()))
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        return mean, var
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self._check_eval()
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = x.float() - self._channel(self.running_mean)
-        y = y * self._channel(mul) + self._channel(self.bias)
-        return y.to(x.dtype)
-
-
-class SubsetBatchNorm(BatchNorm):
-    """``SubsetBatchNorm`` eval form: fold, round, then affine in x's dtype."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self._check_eval()
-        inv = torch.reciprocal(torch.sqrt(self.running_var + self.eps))
-        mul = (inv * self.weight).to(x.dtype)
-        add = (self.bias - self.running_mean * inv * self.weight).to(x.dtype)
-        return x * self._channel(mul) + self._channel(add)
+        if self.training:
+            mean, var = self._batch_stats(x)
+        else:
+            mean, var = self.running_mean, self.running_var
+        c = self._channel
+        if self.stats_rows > 0:
+            inv = torch.reciprocal(torch.sqrt(var + self.eps))
+            mul = (inv * self.weight).to(x.dtype)
+            add = (self.bias - mean * inv * self.weight).to(x.dtype)
+            return x * c(mul) + c(add)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = x.float() - c(mean)
+        return (y * c(mul) + c(self.bias)).to(x.dtype)

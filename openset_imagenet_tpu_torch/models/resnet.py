@@ -1,4 +1,4 @@
-"""Two-head ResNet family in PyTorch, forward/eval only.
+"""Two-head ResNet family in PyTorch.
 
 Counterpart of :mod:`openset_imagenet_tpu.models.resnet`: a ResNet backbone
 whose last fully-connected layer is ``fc`` (``2048 -> fc_layer_dim``, the
@@ -20,8 +20,10 @@ differ:
   v1.5 bottleneck with the stride on the 3x3 conv; every 3x3 conv pads
   (1, 1) (never flax "SAME"); the downsample is a strided 1x1 conv + BN;
   the mean pool is over H and W.
-* Batch-norm runs on running statistics in the rounding form the JAX
-  model picks from ``bn_stats_rows`` (see :mod:`.norm`).
+* Batch-norm uses the rounding form the JAX model picks from
+  ``bn_stats_rows`` (see :mod:`.norm`): running statistics in eval mode,
+  batch (or ghost) statistics in training mode, so ``model.train()`` is
+  the JAX ``train=True``.
 
 ``state_dict`` keys are the reference torch layout (``resnet_base.conv1
 .weight`` ... ``resnet_base.fc.*``, ``logits.*``), so reference checkpoints
@@ -31,6 +33,8 @@ directly.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -38,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .norm import BatchNorm, SubsetBatchNorm
+from .norm import BatchNorm
 
 
 class Conv(nn.Module):
@@ -180,7 +184,8 @@ class ResNet50(nn.Module):
     Args mirror the JAX ``ResNet50``: ``fc_layer_dim`` (features head),
     ``out_features`` (logits head), ``logit_bias``, ``dtype`` (compute
     dtype), ``stage_sizes``/``block``/``width``/``groups``/``base_width``
-    (variant geometry) and ``bn_stats_rows`` (selects the batch-norm
+    (variant geometry) and ``bn_stats_rows`` (the batch-norm statistics
+    window in training mode, 0 for the whole batch; it also selects the
     rounding form).
 
     ``space_to_depth`` stores the same ``[7, 7, 3, F]`` stem kernel as the
@@ -211,7 +216,8 @@ class ResNet50(nn.Module):
                     f"(ROADMAP Queue 1 {_DEFERRED[name]})")
         del space_to_depth, dot_1x1  # same arithmetic as the plain convs
         self.dtype = dtype
-        norm = SubsetBatchNorm if bn_stats_rows > 0 else BatchNorm
+        self.bn_stats_rows = int(bn_stats_rows)
+        norm = functools.partial(BatchNorm, stats_rows=self.bn_stats_rows)
         self.resnet_base = ResNetBase(
             block or Bottleneck, stage_sizes, width, groups, base_width,
             fc_layer_dim, norm, device=device)
@@ -224,6 +230,24 @@ class ResNet50(nn.Module):
         features = self.resnet_base(x)
         logits = self.logits(features)
         return logits.float(), features.float()
+
+    @contextlib.contextmanager
+    def stats_window(self, rows: int):
+        """Run the same parameters with batch-norm window ``rows``.
+
+        The port's ``model.clone(bn_stats_rows=rows).apply``: inside the
+        block every batch-norm takes its statistics from the first
+        ``rows`` rows (0: all rows), in the rounding form that window
+        selects, exactly as a model built with ``bn_stats_rows=rows``.
+        """
+        norms = [m for m in self.modules() if isinstance(m, BatchNorm)]
+        for m in norms:
+            m.stats_rows = int(rows)
+        try:
+            yield self
+        finally:
+            for m in norms:
+                m.stats_rows = self.bn_stats_rows
 
 
 _VARIANTS = {

@@ -1,18 +1,27 @@
-"""Engine subset of the serving slice: model, loss wiring, eval steps.
+"""Training engine: model, loss wiring, optimizer, train/eval steps, loops.
 
-Counterpart of the forward half of :mod:`openset_imagenet_tpu.train`:
-:func:`build_model`, :func:`make_loss_fn`, :func:`make_eval_step`,
-:func:`make_forward_step` and :func:`validate`.  PyTorch runs eagerly, so
-the "steps" are plain functions under ``torch.inference_mode()``; they
-take the model (in eval mode) where the JAX steps take the train state,
-and numpy or tensor batches, which they move to the model's device.
-The train step, the worker and the input pipeline come next (ROADMAP
-Queue 1 item 2).
+Counterpart of :mod:`openset_imagenet_tpu.train` below the worker:
+:func:`build_model`, :func:`make_loss_fn`, :func:`build_lr_schedule`,
+:func:`build_optimizer`, :class:`TrainState` / :func:`create_state`,
+:func:`make_train_step` with the ragged-tail rule (:func:`make_tail_step`),
+:func:`train_epoch`, :func:`make_eval_step`, :func:`make_forward_step` and
+:func:`validate`.  PyTorch runs eagerly, so the "steps" are plain
+functions: the train step updates the :class:`TrainState` in place (and
+returns it, as the JAX step returns the new state); the eval and forward
+steps run under ``torch.inference_mode()`` and take the model.  Each step
+puts the model in the mode it needs (the JAX ``train=`` argument).  Steps
+take numpy or tensor batches and move them to the model's device; a step
+never syncs the host, and the loops fetch their sums once at the end.
+The worker (``train.worker``: label surgery, checkpoints, gamma
+selection, preemption) comes next (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+import math
+import time
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -68,10 +77,14 @@ def make_loss_fn(loss_type: str, unk_weight: float = 1.0,
         raise ValueError("garbage loss requires class_weights")
     if fused:
         from .ops import fused_loss as fl
+    weights = {}  # class weights, copied once per device
 
     def weights_on(logits):
-        return torch.as_tensor(class_weights, dtype=torch.float32,
-                               device=logits.device)
+        w = weights.get(logits.device)
+        if w is None:
+            w = weights[logits.device] = torch.as_tensor(
+                class_weights, dtype=torch.float32, device=logits.device)
+        return w
 
     def loss_fn(logits, labels, mask=None):
         if loss_type == "entropic":
@@ -101,15 +114,193 @@ def _device_of(model: torch.nn.Module) -> torch.device:
 
 
 def _on(device, x) -> Tensor:
+    """Host numpy or tensor -> tensor on ``device``, without a host sync.
+
+    A numpy view of a whole torch tensor (the pipeline's pinned buffers)
+    is copied from that tensor, so the asynchronous copy is tracked by
+    the pinned allocator and the buffer is not reused while in flight.
+    """
     if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(x))
+        base = x.base
+        if (isinstance(base, torch.Tensor) and tuple(base.shape) == x.shape
+                and base.data_ptr() == x.ctypes.data):
+            x = base
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(x))
     return x.to(device, non_blocking=True)
+
+
+def _set_mode(model: torch.nn.Module, train: bool) -> None:
+    if model.training != train:
+        model.train(train)
+
+
+# -- optimizer (train.py:136-281) --------------------------------------------
+
+def build_lr_schedule(opt_cfg, steps_per_epoch: int, epochs: int = 0
+                      ) -> Callable[[int], float]:
+    """Per-update learning-rate schedule ``count -> lr``.
+
+    The JAX package's three forms (``train.py:136-192``): StepLR
+    ``lr * gamma ** ((count // spe) // decay)`` (the default, reference
+    parity); ``opt.schedule: cosine`` from ``lr`` down to ``lr *
+    opt.min_lr_ratio`` over the post-warmup part of ``epochs``; and
+    ``opt.warmup_epochs`` of linear warmup ``lr * (count + 1) / warmup``
+    in front of either.  ``count`` is the number of updates already made,
+    so the first update uses ``schedule(0)``, as in optax.
+    """
+    lr = float(opt_cfg.lr)
+    decay = int(getattr(opt_cfg, "decay", 0) or 0)
+    gamma = float(getattr(opt_cfg, "gamma", 1.0) or 1.0)
+    kind = getattr(opt_cfg, "schedule", "step") or "step"
+    spe = max(int(steps_per_epoch), 1)
+    warmup = int(getattr(opt_cfg, "warmup_epochs", 0) or 0) * spe
+    if kind == "cosine":
+        if epochs <= 0:
+            raise ValueError("opt.schedule: cosine needs the total epoch "
+                             "count (cfg.epochs) to place the decay")
+        floor = lr * float(getattr(opt_cfg, "min_lr_ratio", 0.0) or 0.0)
+        total = max(epochs * spe - warmup, 1)
+
+        def base(count):
+            frac = min(max((count - warmup) / total, 0.0), 1.0)
+            return floor + (lr - floor) * 0.5 * (1 + math.cos(math.pi * frac))
+    elif kind == "step":
+        def base(count):
+            return lr * gamma ** ((count // spe) // decay) if decay > 0 \
+                else lr
+    else:
+        raise ValueError(f"unknown opt.schedule {kind!r}; "
+                         "choose 'step' or 'cosine'")
+    if warmup <= 0:
+        return base
+
+    def schedule(count):
+        return lr * ((count + 1) / warmup) if count < warmup \
+            else base(count)
+
+    return schedule
+
+
+class Transform(NamedTuple):
+    """What :func:`build_optimizer` returns (the port's
+    ``optax.GradientTransformation``): ``make(params)`` builds the torch
+    optimizer, and ``schedule(count)`` is its learning rate per update."""
+
+    make: Callable
+    schedule: Callable[[int], float]
+
+
+def build_optimizer(opt_cfg, steps_per_epoch: int, epochs: int = 0
+                    ) -> Transform:
+    """Adam (b1 0.9, b2 0.999, eps 1e-8) or SGD(momentum=0.9) over
+    :func:`build_lr_schedule` (reference ``train.py:356-369``).
+
+    ``opt.accumulate_steps > 1`` and ``opt.ema`` are not ported yet.
+    """
+    if int(getattr(opt_cfg, "accumulate_steps", 1) or 1) > 1 or \
+            float(getattr(opt_cfg, "ema", 0.0) or 0.0):
+        raise NotImplementedError(
+            "opt.accumulate_steps > 1 and opt.ema are not ported yet "
+            "(ROADMAP Queue 1 item 2, worker slice)")
+    schedule = build_lr_schedule(opt_cfg, steps_per_epoch, epochs=epochs)
+    if getattr(opt_cfg, "type", "adam") == "sgd":
+        def make(params):
+            return torch.optim.SGD(params, lr=schedule(0), momentum=0.9)
+    else:
+        def make(params):
+            return torch.optim.Adam(params, lr=schedule(0),
+                                    betas=(0.9, 0.999), eps=1e-8)
+    return Transform(make, schedule)
+
+
+class TrainState:
+    """Model, optimizer and update count (the JAX ``TrainState``).
+
+    ``step`` is a host integer: the learning rate of each update is set
+    from it before ``optimizer.step()``, so no scheduler sits between the
+    count and the rate and nothing is read back from the device.
+    """
+
+    def __init__(self, model: ResNet50, optimizer: torch.optim.Optimizer,
+                 schedule: Callable[[int], float], step: int = 0):
+        self.model = model
+        self.optimizer = optimizer
+        self.schedule = schedule
+        self.step = int(step)
+
+    def apply_gradients(self) -> None:
+        """One optimizer update at ``schedule(step)``; then ``step += 1``."""
+        lr = self.schedule(self.step)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.step += 1
+
+
+def create_state(model: ResNet50, tx: Transform) -> TrainState:
+    """Wrap an initialised model and a fresh optimizer over its
+    parameters."""
+    return TrainState(model, tx.make(model.parameters()), tx.schedule)
+
+
+# -- steps ----------------------------------------------------------------
+
+def make_train_step(loss_fn: Callable,
+                    bn_stats_rows: Optional[int] = None) -> Callable:
+    """``step(state, images, labels, mask) -> (state, metrics)``.
+
+    uint8 images are scaled by 1/255 on the device; forward in training
+    mode (batch statistics, running statistics updated), loss, backward,
+    one optimizer update.  ``metrics`` holds device scalars
+    ``{"loss_sum": loss * rows, "count": rows}`` with ``rows = mask.sum()``
+    (tracker weighting by batch rows, reference ``train.py:126,135``).
+
+    ``bn_stats_rows`` runs the model with that batch-norm window instead
+    of its own (:meth:`ResNet50.stats_window`): the ragged-tail step.
+    """
+    def step(state: TrainState, images, labels, mask):
+        model = state.model
+        device = _device_of(model)
+        imgs = _to_float(_on(device, images))
+        labels, mask = _on(device, labels), _on(device, mask).float()
+        _set_mode(model, True)
+        window = (contextlib.nullcontext() if bn_stats_rows is None
+                  else model.stats_window(bn_stats_rows))
+        with window:
+            logits, _ = model(imgs)
+        loss, _ = loss_fn(logits, labels, mask)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        rows = mask.sum()
+        return state, {"loss_sum": loss.detach() * rows, "count": rows}
+
+    return step
+
+
+def make_tail_step(loss_fn: Callable, model: ResNet50, n_tail: int,
+                   train_step: Callable) -> Optional[Callable]:
+    """The step for an epoch's ragged last batch (``train.py:987-1005``).
+
+    Tail batches arrive padded with the padding last (``pipeline.
+    InputPipeline._local_slice``), so a window of exactly ``n_tail``
+    leading rows sees only valid samples.  A ghost window ``0 < G <=
+    n_tail`` already does, and then the regular step serves.  ``None``
+    when there is no ragged tail.
+    """
+    if not n_tail:
+        return None
+    if 0 < model.bn_stats_rows <= n_tail:
+        return train_step
+    return make_train_step(loss_fn, bn_stats_rows=n_tail)
 
 
 def make_forward_step() -> Callable:
     """``step(model, images_u8) -> (logits, features, scores)``."""
     @torch.inference_mode()
     def step(model, images):
+        _set_mode(model, False)
         logits, features = model(_to_float(_on(_device_of(model), images)))
         return logits, features, torch.softmax(logits.float(), dim=-1)
 
@@ -126,6 +317,7 @@ def make_eval_step(loss_fn: Callable, loss_type: str,
     def step(model, images, labels, mask):
         device = _device_of(model)
         labels, mask = _on(device, labels), _on(device, mask).float()
+        _set_mode(model, False)
         logits, _ = model(_to_float(_on(device, images)))
         scores = torch.softmax(logits.float(), dim=-1)
         loss, _ = loss_fn(logits, labels, mask)
@@ -138,6 +330,43 @@ def make_eval_step(loss_fn: Callable, loss_type: str,
                 "neg_sum": neg_sum, "neg_count": neg_cnt}
 
     return step
+
+
+def train_epoch(state: TrainState, pipeline, epoch: int,
+                train_step: Callable, trackers,
+                tail_step: Optional[Callable] = None, start_batch: int = 0,
+                step_hook: Optional[Callable] = None) -> TrainState:
+    """One pass over the training set; updates ``trackers['j']`` and
+    ``trackers['imgs/s']`` (``train.py:559-617``).
+
+    ``tail_step`` takes the epoch's last batch (see
+    :func:`make_tail_step`); ``start_batch`` resumes the epoch at batch k
+    (the pipeline's order is keyed by ``(seed, epoch)``, so the suffix is
+    the one an uninterrupted epoch sees); ``step_hook(state, done)`` runs
+    after every step and ends the epoch early by returning True.  The
+    sums stay on the device and are fetched once, at the end.
+    """
+    for m in trackers.values():
+        m.reset()
+    sums = None
+    t0 = time.time()
+    nb = len(pipeline)
+    batches = pipeline.epoch(epoch, start_batch=start_batch)
+    for i, batch in enumerate(batches, start=start_batch):
+        step = (tail_step if tail_step is not None and i == nb - 1
+                else train_step)
+        state, m = step(state, batch.images, batch.labels, batch.mask)
+        sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
+        if step_hook is not None and step_hook(state, i + 1):
+            break
+    if sums is not None:
+        count, loss_sum = torch.stack(
+            [sums["count"], sums["loss_sum"].float()]).cpu().tolist()
+        elapsed = time.time() - t0
+        if count:
+            trackers["j"].update(loss_sum / count, count)
+            trackers["imgs/s"].update(count / max(elapsed, 1e-9), 1)
+    return state
 
 
 def validate(model, pipeline, epoch: int, eval_step: Callable,

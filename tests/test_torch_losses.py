@@ -5,9 +5,13 @@ The port's plain losses (``ops.losses``) and its fused wrappers
 tensors) are held against JAX's ``ops.losses`` and its Pallas kernels in
 interpreter mode, on the same numpy inputs.  Tolerance: rtol 1e-5 on the
 mean (float32 sums in another order); row counts exact, the garbage
-loss's summed class weights within rtol 1e-6.
+loss's summed class weights within rtol 1e-6.  Gradients (the K2 / K4
+plain versions behind the autograd Functions) against ``jax.grad`` of the
+JAX fused losses: rtol 1e-4, atol 1e-6, as ``tests/test_fused_loss.py``;
+masked rows exactly zero; ``gradcheck`` in float64.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -143,3 +147,87 @@ def test_average_meter_matches_jax():
     assert (ours.val, ours.sum, ours.count, ours.avg) == \
         (ref.val, ref.sum, ref.count, ref.avg)
     assert repr(ours) == repr(ref)
+
+
+def _port_loss(loss, lg, lb, mk, wt, w):
+    if loss == "entropic":
+        return pfl.entropic_openset_loss_fused(lg, lb, mk, w)
+    if loss == "softmax":
+        return pfl.softmax_loss_fused(lg, lb, mk)
+    return pfl.garbage_loss_fused(lg, lb, wt, mk)
+
+
+def _grads(loss, logits, labels, mask, weights, w, g=0.37):
+    """(port autograd, jax.grad) of ``g * mean`` with respect to logits."""
+    lg, lb, mk, wt = _t(logits, labels, mask, weights)
+    lg.requires_grad_()
+    (got,) = torch.autograd.grad(g * _port_loss(loss, lg, lb, mk, wt, w)[0],
+                                 lg)
+    jlb, jmk, jwt = jnp.asarray(labels), jnp.asarray(mask), \
+        jnp.asarray(weights)
+    jfn = {"entropic": lambda x: jfl.entropic_openset_loss_fused(
+               x, jlb, jmk, w)[0],
+           "softmax": lambda x: jfl.softmax_loss_fused(x, jlb, jmk)[0],
+           "garbage": lambda x: jfl.garbage_loss_fused(x, jlb, jwt, jmk)[0]}
+    ref = jax.grad(lambda x: g * jfn[loss](x))(jnp.asarray(logits))
+    return got.numpy(), np.asarray(ref)
+
+
+@pytest.mark.parametrize("c", [8, 116, 1000])
+@pytest.mark.parametrize("loss,w", [("entropic", 1.0), ("entropic", 0.5),
+                                    ("softmax", 1.0), ("garbage", 1.0)])
+def test_gradients_match_jax(loss, w, c):
+    batch = make_batch(b=16, c=c, seed=c + 1,
+                       label_low=0 if loss == "garbage" else -1)
+    got, ref = _grads(loss, *batch, w)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6)
+    masked = batch[2] == 0
+    assert masked.any() and np.all(got[masked] == 0)
+
+
+@pytest.mark.parametrize("loss", ["entropic", "softmax", "garbage"])
+@pytest.mark.parametrize("case", ["all_negative", "all_masked",
+                                  "masked_tail"])
+def test_edge_gradients_match_jax(loss, case):
+    logits, labels, mask, weights = make_batch(b=64, c=117, seed=9)
+    if loss == "garbage":
+        labels = np.abs(labels)
+    if case == "all_negative" and loss != "garbage":
+        labels = -np.ones_like(labels)
+    if case == "all_masked":
+        mask = np.zeros_like(mask)
+    if case == "masked_tail":
+        mask = (np.arange(64) < 37).astype(np.float32)
+    got, ref = _grads(loss, logits, labels, mask, weights, 0.5)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6)
+    assert np.all(got[mask == 0] == 0)
+
+
+@pytest.mark.parametrize("loss", ["entropic", "softmax", "garbage"])
+def test_plain_backward_gradcheck(loss):
+    logits, labels, mask, weights = make_batch(b=6, c=5, seed=3,
+                                               label_low=-1)
+    if loss == "garbage":
+        labels = np.abs(labels)
+    lg = torch.from_numpy(logits.astype(np.float64)).requires_grad_()
+    lb, mk, wt = _t(labels, mask, weights)
+    assert torch.autograd.gradcheck(
+        lambda x: _port_loss(loss, x, lb, mk, wt, 0.5)[0], (lg,))
+
+
+def test_no_gradient_to_count_labels_mask_or_weights():
+    logits, labels, mask, weights = make_batch(b=8, c=16, label_low=0)
+    lg, lb, mk, wt = _t(logits, labels, mask, weights)
+    lg.requires_grad_()
+    mk.requires_grad_()
+    wt.requires_grad_()
+    for loss in ("entropic", "softmax", "garbage"):
+        mean, count = _port_loss(loss, lg, lb, mk, wt, 1.0)
+        assert not count.requires_grad
+        g_mask, g_w = torch.autograd.grad(mean, (mk, wt), allow_unused=True)
+        assert g_mask is None and g_w is None
+    before = dict(pfl.LAUNCHES)
+    mean, _ = pfl.entropic_openset_loss_fused(lg, lb, mk.detach(), 1.0)
+    mean.backward()
+    assert pfl.LAUNCHES == before

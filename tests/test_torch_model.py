@@ -175,9 +175,3 @@ def test_deferred_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_resnet("tiny", fc_layer_dim=3, out_features=3,
                      **{option: value})
-
-
-def test_train_mode_batchnorm_raises():
-    model = build_resnet("tiny", fc_layer_dim=3, out_features=3).train()
-    with pytest.raises(NotImplementedError, match="train step"):
-        model(torch.zeros(1, 32, 32, 3))

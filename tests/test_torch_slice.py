@@ -186,14 +186,15 @@ def test_port_checkpoint_loads_in_both_packages(tmp_path):
     assert checkpoint.infer_n_classes(path) == 5
     again = pengine.build_model(NameSpace({"model": {"variant": "tiny50"}}),
                                 5, dtype=torch.float32)
-    assert checkpoint.load_checkpoint(path, again) == (2, 0.5)
+    # epoch 2 finished: stored as 3, the epoch to resume at.
+    assert checkpoint.load_checkpoint(path, again) == (3, 0.5, 0)
     for key, value in model.state_dict().items():
         assert torch.equal(again.state_dict()[key], value), key
     jmodel = jax_build("tiny50", fc_layer_dim=5, out_features=5,
                        dtype=jnp.float32)
     jvars, epoch, best = load_reference_checkpoint(path, jmodel,
                                                    image_size=SIZE)
-    assert (epoch, best) == (2, 0.5)
+    assert (epoch, best) == (3, 0.5)
     images = np.random.default_rng(8).random((2, SIZE, SIZE, 3)).astype(
         np.float32)
     ref_logits, _ = jmodel.apply(jvars, images, train=False)
@@ -209,6 +210,10 @@ def test_import_leaves_jax_unloaded():
         "[getattr(p, n) for n in p.__all__]\n"
         "import openset_imagenet_tpu_torch.checkpoint\n"
         "import openset_imagenet_tpu_torch.config\n"
+        "import openset_imagenet_tpu_torch.train\n"
+        "import openset_imagenet_tpu_torch.pipeline\n"
+        "import openset_imagenet_tpu_torch.dataset\n"
+        "import openset_imagenet_tpu_torch.convert\n"
         "heavy = ('jax', 'flax', 'optax', 'openset_imagenet_tpu', 'yaml',\n"
         "         'msgpack', 'pandas', 'PIL', 'triton')\n"
         "print([m for m in sys.modules if m.split('.')[0] in heavy])\n")

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's serving forward spends its time on the GPU.
+"""Where the PyTorch port's serving forward (or train step) spends its
+time on the GPU.
 
-    python tools/profile_torch_serve.py [--batch 64 256]
+    python tools/profile_torch_serve.py [--batch 64 256] [--train]
                                         [--trace-dir chiprun_out]
 
 Builds a full-width two-head resnet50 (116 classes, random weights from
 seed 0) exactly as ``OpenSetPredictor`` holds it (bf16 compute,
 channels_last, CUDA), and runs the forward step (``train.
 make_forward_step``) on uint8 ``[B, 224, 224, 3]`` batches already on the
-card.  For each batch size it prints the forward's median milliseconds
-(CUDA events), then one ``torch.profiler`` window of five forwards:
-device-busy time, the idle share of the window, kernel launches per
-forward, and device time by kernel category and by kernel.  A Chrome
-trace per batch size goes to ``--trace-dir``.  Needs a CUDA device.
+card.  With ``--train`` it runs the train step instead (``train.
+make_train_step``: ghost batch-norm over 64 rows, the entropic loss
+through the Triton kernels, Adam at lr 1e-3).  For each batch size it
+prints the step's median milliseconds (CUDA events), then one
+``torch.profiler`` window of five steps: device-busy time, the idle share
+of the window, kernel launches per step, and device time by kernel
+category and by kernel.  A Chrome trace per batch size goes to
+``--trace-dir``.  Needs a CUDA device.
 """
 
 import argparse
@@ -31,6 +35,8 @@ TOP = 12
 
 # Kernel-name fragments -> category, first match wins.
 CATEGORIES = (
+    ("loss (Triton)", ("entropic_", "ce_fwd", "ce_bwd", "sum_partials")),
+    ("optimizer", ("multi_tensor", "foreach")),
     ("pool", ("pool",)),
     ("conv", ("fprop", "conv", "implicit", "xmma", "dgrad", "nchw", "nhwc")),
     ("gemm", ("gemm", "cutlass", "cublas")),
@@ -51,35 +57,57 @@ def category(name: str) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[64, 256])
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step instead of the forward")
     ap.add_argument("--trace-dir", default="chiprun_out")
     args = ap.parse_args(argv)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.config import NameSpace
     from openset_imagenet_tpu_torch.models.resnet import build_resnet
-    from openset_imagenet_tpu_torch.train import make_forward_step
 
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
     print(f"device {torch.cuda.get_device_name(0)}")
     model = build_resnet("resnet50", fc_layer_dim=116, out_features=116,
+                         bn_stats_rows=64 if args.train else 0,
                          generator=torch.Generator().manual_seed(0))
     model = model.cuda().to(memory_format=torch.channels_last)
-    forward = make_forward_step()
+    what = "train step" if args.train else "forward"
+    if args.train:
+        state = engine.create_state(model, engine.build_optimizer(
+            NameSpace({"type": "adam", "lr": 1e-3}), 1))
+        train_step = engine.make_train_step(
+            engine.make_loss_fn("entropic", fused="auto"))
+    else:
+        forward = engine.make_forward_step()
     trace_dir = pathlib.Path(args.trace_dir)
     trace_dir.mkdir(parents=True, exist_ok=True)
 
     for b in args.batch:
-        images = torch.from_numpy(np.random.default_rng(b).integers(
+        rng = np.random.default_rng(b)
+        images = torch.from_numpy(rng.integers(
             0, 256, (b, 224, 224, 3), np.uint8)).cuda()
+        labels = torch.from_numpy(rng.integers(-1, 116, b).astype(
+            np.int32)).cuda()
+        mask = torch.ones(b, device="cuda")
+
+        def run():
+            if args.train:
+                train_step(state, images, labels, mask)
+            else:
+                forward(model, images)
+
         times = []
         for i in range(REPS + 3):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            forward(model, images)
+            run()
             end.record()
             end.synchronize()
             if i >= 3:
@@ -91,10 +119,11 @@ def main(argv=None):
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(REPS):
-                forward(model, images)
+                run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        prof.export_chrome_trace(str(trace_dir / f"torch_serve_b{b}.json"))
+        name = "torch_train" if args.train else "torch_serve"
+        prof.export_chrome_trace(str(trace_dir / f"{name}_b{b}.json"))
 
         by_kernel = collections.Counter()
         launches = collections.Counter()
@@ -107,19 +136,19 @@ def main(argv=None):
         by_cat = collections.Counter()
         for name, us in by_kernel.items():
             by_cat[category(name)] += us
-        print(f"\nbatch {b}: forward {fwd_ms:.3f} ms median of {len(times)}"
+        print(f"\nbatch {b}: {what} {fwd_ms:.3f} ms median of {len(times)}"
               f" = {b / fwd_ms * 1e3:.1f} imgs/s")
-        print(f"  profiled window: {REPS} forwards, wall {wall_ms:.3f}"
+        print(f"  profiled window: {REPS} steps, wall {wall_ms:.3f}"
               f" ms, device busy {busy_ms:.3f} ms, idle share "
               f"{max(0.0, 1 - busy_ms / wall_ms):.3f}, kernel launches per "
-              f"forward {sum(launches.values()) / REPS:.0f}")
+              f"step {sum(launches.values()) / REPS:.0f}")
         if not by_kernel:
             print("  the profiler recorded no device time")
             continue
         for cat, us in by_cat.most_common():
-            print(f"  {cat:15s} {us / 1e3 / REPS:9.3f} ms/forward "
+            print(f"  {cat:15s} {us / 1e3 / REPS:9.3f} ms/step "
                   f"{us / 1e3 / busy_ms:6.1%}")
-        print(f"  top {TOP} kernels (ms/forward, launches/forward):")
+        print(f"  top {TOP} kernels (ms/step, launches/step):")
         for name, us in by_kernel.most_common(TOP):
             print(f"    {us / 1e3 / REPS:8.3f}  "
                   f"{launches[name] / REPS:5.0f}  {name[:110]}")
