@@ -37,19 +37,43 @@ from a seed), and checks what comes out:
    once its input differs by an ulp, and the flips add up towards the
    stem: the stem's batch-norm and conv gradients moved by up to 1.234e-2
    on the H100.  Prints train-step imgs/s at batch 256 with the kernels
-   and with ``fused=False`` and the peak device memory.
+   and with ``fused=False`` and the peak device memory;
+6. fused-block training: the same index through a ``drop_remainder=True``
+   pipeline (two full batches of 256) -> ``train_epoch`` of a resnet50
+   with ``model.fused_blocks`` and ``model.boundary_mask`` (ghost-64,
+   entropic through K1/K2, Adam), every pointwise backward site through
+   K5, then ``validate`` of that model in eval mode, within 1e-2 of the
+   unfused model on the same weights.  Checks: finite losses, running
+   statistics that moved, >= 32 K5 launches per step, the loss falling
+   over eight steps on one batch; from one state (cuDNN deterministic)
+   two kernel steps bitwise equal, the kernel against the plain site
+   (``use_kernel=False``: parameter gradients within 2e-2 in norm), the
+   fused model against the unfused one (bf16: loss within 1e-2, gradients
+   within 5e-2 in norm, the two backwards rounding in other places;
+   float32 at batch 64, ghost-16, no TF32: gradients within 1e-3).
+   Prints train-step imgs/s of both forms in turns and their peak memory.
+
+Phase 2b holds K5 (``ops/fused_block_bwd.py``, CUDA C++ built by ``nvcc``
+at first use) against its plain version at the resnet50 site shapes of
+stages 1 and 4 (tail site: int8 mask, input activation, gp out; head
+sites with and without the skip gradient), at a ragged M, in bf16 and
+f32: gp exact, dW and the channel sums within 1e-4 relative in norm, dx
+within rtol 2e-2, atol 1e-2 (bf16) or 1e-5 (f32), the same bits on a
+second launch; with its times at the stage-1 tail and head and the
+stage-4 tail.
 
 The launch counts are zeroed just before phase 3 and read after phase 4
-(the serving path), and zeroed again before phase 5's epochs and read
-after them (the train path): each path must have launched its kernels.
+(the serving path), zeroed again before phase 5's epochs and read after
+them (the train path), and again around phase 6's epoch and validation
+(the fused train path): each path must have launched its kernels.
 Float32 matmuls and convolutions run without TF32 (both backend flags
 off), so float32 comparisons on the card are exact float32.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
 code is non-zero and no result line is printed.  Without a CUDA device the
-script exits non-zero at once.  Build outputs (Triton's cache, the
-checkpoint) go to ``build/`` in the checkout.
+script exits non-zero at once.  Build outputs (Triton's cache, the K5
+library, the checkpoint) go to ``build/`` in the checkout.
 """
 
 import json
@@ -302,6 +326,101 @@ def grad_kernel_checks(torch, fl):
     return max_err, timing
 
 
+# -- phase 2b: K5 against its plain version -----------------------------------
+
+K5_FORMS = {"tail": (True, True, False, True),      # in_act, mask, ds, gp
+            "head_ds": (False, False, True, False),
+            "head": (False, False, False, False)}
+# name, M, ci, co, form, dtypes: the resnet50 site shapes at 224 px, batch
+# 256 (the stride sits on the 3x3 conv, so a block-1 head site runs at the
+# input resolution), and ragged M.
+K5_CASES = [
+    ("stage1 tail", 802816, 64, 256, "tail", ("bf16",)),
+    ("stage1 head b1", 802816, 64, 64, "head", ("bf16",)),
+    ("stage1 head", 802816, 256, 64, "head_ds", ("bf16",)),
+    ("stage4 tail", 12544, 512, 2048, "tail", ("bf16", "f32")),
+    ("stage4 head b1", 50176, 1024, 512, "head", ("bf16", "f32")),
+    ("stage4 head", 12544, 2048, 512, "head_ds", ("bf16", "f32")),
+    ("ragged tail", 12544 + 77, 512, 2048, "tail", ("bf16", "f32")),
+    ("ragged head", 1000 + 3, 72, 40, "head_ds", ("bf16", "f32")),
+]
+K5_TIMED = ("stage1 tail", "stage1 head", "stage4 tail")
+
+
+def k5_inputs(torch, m, ci, co, form, dtype, seed):
+    in_act, has_mask, has_ds, emit_gp = K5_FORMS[form]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape, dt=dtype, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dt)
+
+    mask = (torch.randint(0, 2, (m, co), generator=gen, device="cuda")
+            .to(torch.int8) if has_mask else None)
+    args = [draw(m, co), draw(m, co), mask, draw(m, ci),
+            draw(m, ci) if has_ds else None, draw(ci, co, scale=0.05),
+            draw(co, dt=torch.float32), draw(co, dt=torch.float32),
+            draw(ci, dt=torch.float32) if in_act else None,
+            draw(ci, dt=torch.float32) if in_act else None]
+    return args, dict(in_act=in_act, emit_gp=emit_gp)
+
+
+def k5_checks(torch, fbb):
+    """K5 against ``bwd_site_plain`` on the card; returns (max_err, timing
+    at the stage-1 tail in ms, the timing rows)."""
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    max_err, rows = 0.0, []
+    for seed, (name, m, ci, co, form, names) in enumerate(K5_CASES):
+        for dname in names:
+            dtype = dtypes[dname]
+            args, kw = k5_inputs(torch, m, ci, co, form, dtype, SEED + seed)
+            kernel = lambda: fbb.bwd_site(*args, **kw)
+            plain = lambda: fbb.bwd_site_plain(*args, **kw)
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            ref = plain()
+            where = f"K5 {name} [M={m}, ci={ci}, co={co}] {dname}"
+            flat = lambda o: [o[0], o[1], o[2], *o[3], *o[4]]
+            for a, b in zip(flat(got), flat(again)):
+                check(a is None or torch.equal(a, b),
+                      f"{where}: two launches differ")
+            dx, gp, dw, so, si = got
+            rdx, rgp, rdw, rso, rsi = ref
+            check(dx.dtype == dtype and dw.dtype == torch.float32,
+                  f"{where}: output dtypes")
+            check((gp is None) == (rgp is None) and
+                  (gp is None or torch.equal(gp, rgp)), f"{where}: gp")
+            for label, a, b in [("dW", dw, rdw), *zip(
+                    ("s_mul_o", "s_add_o", "s_mul_i", "s_add_i"),
+                    (*so, *si), (*rso, *rsi))]:
+                if b is None:
+                    continue
+                rel = float((a - b).norm() / b.norm().clamp(min=1e-30))
+                check(rel <= 1e-4, f"{where}: {label} {rel:.3e} rel in norm")
+                max_err = max(max_err, float((a - b).abs().max()))
+            tol = (2e-2, 1e-2) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+            check(torch.allclose(dx.float(), rdx.float(), rtol=tol[0],
+                                 atol=tol[1]), f"{where}: dx")
+            max_err = max(max_err, float((dx.float() - rdx.float()).abs()
+                                         .max()))
+            del got, again, ref, dx, gp, dw, rdx, rgp, rdw
+            if name in K5_TIMED and dname == "bf16":
+                rows.append((name, m, ci, co, time_ms(kernel, reps=10),
+                             time_ms(plain, reps=10),
+                             graph_ms(kernel, calls=5, reps=5),
+                             graph_ms(plain, calls=5, reps=5)))
+            del args
+            torch.cuda.empty_cache()
+    print("K5 site          shape                  call_ms   plain_call_ms"
+          "  dev_ms    plain_dev_ms")
+    for name, m, ci, co, ms, pms, dms, pdms in rows:
+        print(f"{name:16s} [{m},{ci}]x[{ci},{co}]".ljust(40) +
+              f"{ms:.4f}   {pms:.4f}        {dms:.4f}   {pdms:.4f}")
+    print(f"K5: every check passed over {sum(len(c[5]) for c in K5_CASES)} "
+          f"cases; max |err| {max_err:.3e}")
+    return max_err, (rows[0][6], rows[0][7])
+
+
 # -- phase 3: serving ---------------------------------------------------------
 
 def randomize_norms(torch, model, generator):
@@ -495,7 +614,7 @@ def write_index(out_dir):
 class Run:
     """One training configuration: dataset, pipeline, model, steps."""
 
-    def __init__(self, torch, csv, loss, batch, ghost, seed):
+    def __init__(self, torch, csv, loss, batch, ghost, seed, fused=False):
         from openset_imagenet_tpu_torch import train as engine
         from openset_imagenet_tpu_torch.config import NameSpace
         from openset_imagenet_tpu_torch.dataset import ImagenetDataset
@@ -510,11 +629,14 @@ class Run:
         self.n_classes = (ds.label_count - 1 if loss == "entropic"
                           else ds.label_count)
         weights = ds.calculate_class_weights() if loss == "garbage" else None
+        # A fused_blocks model drops the ragged tail, as the JAX worker.
         self.pipeline = pipeline_from_dataset(
             ds, batch, is_training=True, seed=seed, num_workers=8,
-            reader=SyntheticReader(crop=IMAGE, seed=seed), pin_memory=True)
-        cfg = NameSpace({"model": {"variant": VARIANT,
-                                   "bn_stats_rows": ghost}})
+            reader=SyntheticReader(crop=IMAGE, seed=seed), pin_memory=True,
+            drop_remainder=fused)
+        cfg = NameSpace({"model": {"variant": VARIANT, "bn_stats_rows": ghost,
+                                   "fused_blocks": fused,
+                                   "boundary_mask": fused}})
         model = engine.build_model(cfg, self.n_classes)  # weights: seed 0
         self.model = model.cuda().to(memory_format=torch.channels_last)
         tx = engine.build_optimizer(NameSpace({"type": "adam", "lr": 1e-3}),
@@ -525,7 +647,7 @@ class Run:
                          for fused in ("auto", False)}
         self.steps = {fused: engine.make_train_step(fn)
                       for fused, fn in self.loss_fns.items()}
-        self.n_tail = len(ds) % batch
+        self.n_tail = 0 if fused else len(ds) % batch
         self.tail_step = engine.make_tail_step(
             self.loss_fns["auto"], self.model, self.n_tail,
             self.steps["auto"])
@@ -646,27 +768,254 @@ def train_checks(torch, ghost):
           f"relative norm difference {worst:.3e} ({worst_name})")
     check(worst <= 2e-2, "parameter gradients: kernels vs fused=False")
 
-    # Train-step rate at batch 256, device-resident batch, in turns.
-    def rate(fused, n=5):
+    rates_in_turns(torch, {"kernels": (state, ghost.steps["auto"]),
+                           "fused=False": (state, ghost.steps[False])},
+                   images, labels, mask)
+
+
+def rates_in_turns(torch, forms, images, labels, mask, n=5):
+    """Train-step imgs/s on a device-resident batch for two forms
+    ``{label: (state, step)}``, in turns a, b, b, a (two warm-up steps
+    before each turn), and each form's peak device memory."""
+    rates = {label: [] for label in forms}
+    peaks = dict.fromkeys(forms, 0)
+    a, b = forms
+    for label in (a, b, b, a):
+        state, step = forms[label]
         for _ in range(2):
-            ghost.steps[fused](state, images, labels, mask)
+            step(state, images, labels, mask)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         for _ in range(n):
-            ghost.steps[fused](state, images, labels, mask)
+            step(state, images, labels, mask)
         torch.cuda.synchronize()
-        return TRAIN_BATCH * n / (time.perf_counter() - t0)
+        rates[label].append(len(images) * n / (time.perf_counter() - t0))
+        peaks[label] = max(peaks[label], torch.cuda.max_memory_allocated())
+    for label in forms:
+        print(f"train step batch {len(images)} ghost-{GHOST} ({label}): "
+              + " / ".join(f"{r:.1f}" for r in rates[label]) +
+              f" imgs/s; peak device memory {peaks[label] / 2**30:.3f} GiB "
+              f"({peaks[label]} bytes)")
 
-    torch.cuda.reset_peak_memory_stats()
-    rates = {"auto": [], False: []}
-    for fused in ("auto", False, False, "auto"):
-        rates[fused].append(rate(fused))
-    peak = torch.cuda.max_memory_allocated()
-    for fused, label in (("auto", "kernels"), (False, "fused=False")):
-        print(f"train step batch {TRAIN_BATCH} ghost-{GHOST} ({label}): "
-              + " / ".join(f"{r:.1f}" for r in rates[fused]) + " imgs/s")
-    print(f"peak device memory, batch {TRAIN_BATCH} train steps: "
-          f"{peak / 2**30:.3f} GiB ({peak} bytes)")
+
+# -- phase 6: fused-block training -------------------------------------------
+
+def worst_rel(names, grads, refs):
+    """Worst relative norm difference of ``grads`` against ``refs``."""
+    worst, worst_name = 0.0, None
+    for name, a, b in zip(names, grads, refs):
+        ref = float(b.float().norm())
+        diff = float((a.float() - b.float()).norm())
+        rel = diff / ref if ref else diff
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
+
+
+def report(label, names, grads, refs):
+    """Print the worst parameters and the whole gradient's relative norm
+    difference; return (worst parameter's, whole gradient's)."""
+    import torch
+
+    rels = sorted((worst_rel([n], [a], [b])[0], n)
+                  for n, a, b in zip(names, grads, refs))
+    flat = lambda ts: torch.cat([t.float().reshape(-1) for t in ts])
+    whole = worst_rel(["all"], [flat(grads)], [flat(refs)])[0]
+    print(f"{label}: parameter gradients, relative norm difference: worst "
+          + ", ".join(f"{n} {r:.3e}" for r, n in rels[::-1][:5]) +
+          f"; median {rels[len(rels) // 2][0]:.3e}; all parameters as one "
+          f"vector {whole:.3e}")
+    return rels[-1][0], whole
+
+
+def param_grads(model):
+    names, grads = zip(*[(n, p.grad) for n, p in model.named_parameters()])
+    return list(names), list(grads)
+
+
+def set_use_kernel(model, use_kernel):
+    from openset_imagenet_tpu_torch.models.resnet import Bottleneck
+
+    for m in model.modules():
+        if isinstance(m, Bottleneck):
+            m.use_kernel = use_kernel
+
+
+def grads_of(torch, model, loss_fn, images, labels, mask):
+    """One train-mode forward and backward from the model's current state
+    (the statistics it updates are restored); returns the loss."""
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+    model.train()
+    model.zero_grad(set_to_none=True)
+    logits, _ = model(images.float() * (1.0 / 255.0))
+    loss, _ = loss_fn(logits, labels, mask)
+    loss.backward()
+    with torch.no_grad():
+        for k, v in model.named_buffers():
+            v.copy_(buffers[k])
+    return float(loss.detach())
+
+
+def unfused_twin(torch, fused_model, n_classes, ghost, dtype):
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.config import NameSpace
+
+    model = engine.build_model(NameSpace({"model": {
+        "variant": VARIANT, "bn_stats_rows": ghost}}), n_classes, dtype=dtype)
+    model.load_state_dict(fused_model.state_dict())
+    return model.cuda().to(memory_format=torch.channels_last)
+
+
+def train_fused(torch, fl, fbb, csv):
+    """Phase 6's main path: a fused_blocks epoch and its validation."""
+    from collections import defaultdict
+
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.ops.losses import AverageMeter
+
+    run = Run(torch, csv, "entropic", TRAIN_BATCH, GHOST, SEED + 13,
+              fused=True)
+    check(run.tail_step is None and len(run.pipeline) == 2,
+          f"fused run: {len(run.pipeline)} batches, tail step "
+          f"{run.tail_step}")
+    stats = {name: m.running_mean.clone()
+             for name, m in run.model.named_modules()
+             if name.endswith(("layer1.0.bn1", "layer4.2.bn3"))}
+    for k in fl.LAUNCHES:
+        fl.LAUNCHES[k] = 0
+    fbb.LAUNCHES["fused_block_bwd"] = 0
+    trackers = run.epoch(torch)
+    val = defaultdict(AverageMeter)
+    eval_step = engine.make_eval_step(run.loss_fns["auto"], "entropic",
+                                      N_CLASSES)
+    engine.validate(run.model, validation_batches(N_CLASSES, "entropic"), 0,
+                    eval_step, val)
+    launches = {**fl.LAUNCHES, **fbb.LAUNCHES}
+    print(f"launches on the fused train path: {launches}")
+    t = trackers
+    print(f"train fused: j {t['j'].avg:.6f} over {t['j'].count:.0f} rows, "
+          f"{t['imgs/s'].avg:.1f} imgs/s (epoch, host clock); validate: j "
+          f"{val['j'].avg:.6f} conf_kn {val['conf_kn'].avg:.6f} conf_unk "
+          f"{val['conf_unk'].avg:.6f} over {val['j'].count:.0f} rows")
+    check(run.state.step == 2 and t["j"].count == 2 * TRAIN_BATCH and
+          np.isfinite(t["j"].avg), f"fused epoch: {run.state.step} steps, "
+          f"{t['j'].count} rows, j {t['j'].avg}")
+    check(np.isfinite(val["j"].avg) and val["j"].count == 3 * BATCH + 37,
+          f"fused validate: j {val['j'].avg} over {val['j'].count} rows")
+    for name, before in stats.items():
+        after = dict(run.model.named_modules())[name].running_mean
+        check(not torch.equal(before, after), f"fused {name}: running mean "
+              "did not move")
+    check(launches["fused_block_bwd"] >= 32 * run.state.step,
+          f"fused train path: {launches['fused_block_bwd']} K5 launches "
+          f"for {run.state.step} steps")
+    check(launches["entropic_fwd"] >= 2 and launches["entropic_bwd"] >= 2,
+          f"fused train path skipped the loss kernels: {launches}")
+
+    # The same weights, unfused, in eval mode: the validation agrees.
+    twin = unfused_twin(torch, run.model, N_CLASSES, GHOST, torch.bfloat16)
+    twin_val = defaultdict(AverageMeter)
+    engine.validate(twin, validation_batches(N_CLASSES, "entropic"), 0,
+                    eval_step, twin_val)
+    print(f"validate unfused twin: j {twin_val['j'].avg:.6f}")
+    check(abs(val["j"].avg - twin_val["j"].avg) <= 1e-2 *
+          abs(twin_val["j"].avg), "fused vs unfused validation loss")
+    return run, twin, launches
+
+
+def fused_checks(torch, run, twin, ghost):
+    """Loss falls; kernel repeat, kernel vs plain site, fused vs unfused;
+    the f32 check; rates and peak memory."""
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.config import NameSpace
+
+    batch = next(iter(run.pipeline.epoch(1)))
+    images = torch.from_numpy(batch.images).cuda()
+    labels = torch.from_numpy(batch.labels).cuda()
+    mask = torch.from_numpy(batch.mask).cuda()
+    state = run.state
+    losses = []
+    for _ in range(8):
+        _, m = run.steps["auto"](state, images, labels, mask)
+        losses.append(m["loss_sum"] / m["count"])
+    losses = torch.stack(losses).cpu().numpy()
+    print("fused: loss over 8 steps on one batch: " +
+          " ".join(f"{v:.4f}" for v in losses))
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          "fused: loss did not fall on a repeated batch")
+
+    loss_fn = run.loss_fns["auto"]
+    model = state.model
+    twin.load_state_dict(model.state_dict())
+    torch.backends.cudnn.deterministic = True
+    first = grads_of(torch, model, loss_fn, images, labels, mask)
+    kernel_grads = [p.grad.clone() for p in model.parameters()]
+    second = grads_of(torch, model, loss_fn, images, labels, mask)
+    check(first == second and all(
+        torch.equal(a, p.grad) for a, p in zip(kernel_grads,
+                                               model.parameters())),
+          "fused: two kernel steps from one state differ")
+    set_use_kernel(model, False)
+    grads_of(torch, model, loss_fn, images, labels, mask)
+    set_use_kernel(model, None)
+    names, plain_grads = param_grads(model)
+    # Gradient checks run after every number is printed.  "In norm": the
+    # difference of all parameter gradients as one vector, relative to
+    # that vector's norm; the worst single parameter is printed beside it.
+    late = []
+    _, whole = report("fused: kernel vs plain site (bf16)", names,
+                      kernel_grads, plain_grads)
+    late.append((whole <= 2e-2, "fused: kernel vs plain site gradients"))
+    twin_loss = grads_of(torch, twin, loss_fn, images, labels, mask)
+    print(f"fused vs unfused (bf16, batch {TRAIN_BATCH}, ghost-{ghost}): loss "
+          f"{first:.6f} vs {twin_loss:.6f}")
+    _, whole = report("fused vs unfused (bf16)", names, kernel_grads,
+                      param_grads(twin)[1])
+    late.append((abs(first - twin_loss) <= 1e-2 * abs(twin_loss),
+                 "fused vs unfused loss"))
+    late.append((whole <= 5e-2, "fused vs unfused parameter gradients "
+                 "(bf16)"))
+
+    # float32, batch 64, TF32 off: ghost-16, then a window of the whole
+    # batch (the pre-pass conv then has the main conv's shape, so no ReLU
+    # gate can flip between the two models: every parameter must agree).
+    sl = slice(0, BATCH)
+    for rows in (16, BATCH):
+        f32 = engine.build_model(NameSpace({"model": {
+            "variant": VARIANT, "bn_stats_rows": rows, "fused_blocks": True,
+            "boundary_mask": True}}), N_CLASSES, dtype=torch.float32)
+        f32 = f32.cuda().to(memory_format=torch.channels_last)
+        f32.load_state_dict(model.state_dict())
+        f32_twin = unfused_twin(torch, f32, N_CLASSES, rows, torch.float32)
+        loss_a = grads_of(torch, f32, loss_fn, images[sl], labels[sl],
+                          mask[sl])
+        f32_kernel = [p.grad.clone() for p in f32.parameters()]
+        loss_b = grads_of(torch, f32_twin, loss_fn, images[sl], labels[sl],
+                          mask[sl])
+        label = f"fused vs unfused (f32, batch {BATCH}, ghost-{rows})"
+        print(f"{label}: loss {loss_a:.7f} vs {loss_b:.7f}")
+        worst, whole = report(label, names, f32_kernel,
+                              param_grads(f32_twin)[1])
+        late.append((whole <= 1e-3 if rows < BATCH else worst <= 1e-3,
+                     f"{label}: parameter gradients"))
+        if rows < BATCH:
+            set_use_kernel(f32, False)
+            grads_of(torch, f32, loss_fn, images[sl], labels[sl], mask[sl])
+            worst, _ = report("fused: kernel vs plain site (f32)", names,
+                              f32_kernel, param_grads(f32)[1])
+            late.append((worst <= 1e-3, "fused: kernel vs plain site "
+                         "gradients (f32), every parameter"))
+        del f32, f32_twin
+    torch.backends.cudnn.deterministic = False
+
+    twin_state = engine.create_state(twin, engine.build_optimizer(
+        NameSpace({"type": "adam", "lr": 1e-3}), steps_per_epoch=2))
+    rates_in_turns(torch, {"fused_blocks (K5)": (state, run.steps["auto"]),
+                           "unfused": (twin_state, run.steps["auto"])},
+                   images, labels, mask)
+    for ok, message in late:
+        check(ok, message)
 
 
 def main():
@@ -677,6 +1026,7 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
     from openset_imagenet_tpu_torch.ops import fused_loss as fl
 
     out_dir = REPO / "build" / "chip_smoke"
@@ -693,6 +1043,11 @@ def main():
     timing.update(grad_timing)
     print(f"phase kernels: ok ({time.perf_counter() - t0:.1f} s incl. "
           "Triton builds)")
+    t0 = time.perf_counter()
+    fbb._library()
+    print(f"K5 built by nvcc in {time.perf_counter() - t0:.1f} s")
+    k5_err, k5_timing = k5_checks(torch, fbb)
+    print(f"phase K5: ok ({time.perf_counter() - t0:.1f} s incl. the build)")
 
     for k in fl.LAUNCHES:
         fl.LAUNCHES[k] = 0
@@ -731,6 +1086,14 @@ def main():
     ghost, train_launches = train_all(torch, fl, out_dir)
     train_checks(torch, ghost)
     print(f"phase train: ok ({time.perf_counter() - t0:.1f} s)")
+    del ghost
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    run, twin, fused_launches = train_fused(torch, fl, fbb,
+                                            out_dir / "p1_train.csv")
+    fused_checks(torch, run, twin, GHOST)
+    print(f"phase fused train: ok ({time.perf_counter() - t0:.1f} s)")
 
     replaces = {"entropic_fwd": 39, "entropic_bwd": 69, "ce_fwd": 172,
                 "ce_bwd": 191}
@@ -738,10 +1101,17 @@ def main():
         {"name": name, "route": "triton",
          "source": "openset_imagenet_tpu_torch/ops/triton_fused_loss.py",
          "replaces": f"openset_imagenet_tpu/ops/fused_loss.py:{line}",
-         "launches": launches[name] + train_launches[name],
+         "launches": (launches[name] + train_launches[name]
+                      + fused_launches[name]),
          "max_abs_err": max_err[name], "ms": timing[name][0],
          "plain_ms": timing[name][1]}
         for name, line in replaces.items()]
+    kernels.append({
+        "name": "fused_block_bwd", "route": "cuda",
+        "source": "openset_imagenet_tpu_torch/csrc/fused_block_bwd.cu",
+        "replaces": "openset_imagenet_tpu/experimental/fused_block.py:111",
+        "launches": fused_launches["fused_block_bwd"], "max_abs_err": k5_err,
+        "ms": k5_timing[0], "plain_ms": k5_timing[1]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,12 +9,13 @@ public names below resolve lazily on attribute access.
 
 What runs today is the serving slice and the trainer below the worker:
 the two-head ResNet (eval and train mode, full-batch and ghost
-batch-norm), the weight bridge (parameters and optimizer state), the
-three losses (forwards and backwards as hand-written Triton kernels on
-CUDA tensors), the confidence metrics, the dataset index, the input
-pipeline, the optimizer and schedules, the train and eval steps and
-epoch loops, ``.pth`` checkpoints with optimizer state and
-:class:`OpenSetPredictor`.
+batch-norm, and the fused-backward bottleneck of ``model.fused_blocks``
+with its CUDA C++ site kernel), the weight bridge (parameters and
+optimizer state), the three losses (forwards and backwards as
+hand-written Triton kernels on CUDA tensors), the confidence metrics,
+the dataset index, the input pipeline, the optimizer and schedules, the
+train and eval steps and epoch loops, ``.pth`` checkpoints with
+optimizer state and :class:`OpenSetPredictor`.
 """
 
 from __future__ import annotations

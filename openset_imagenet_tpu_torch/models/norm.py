@@ -26,6 +26,11 @@ as ``momentum * old + (1 - momentum) * new`` with the *biased* variance.
 ``F.batch_norm(training=True)`` writes the unbiased variance and matches
 neither rounding form in bfloat16, so the math is written out here.
 
+:meth:`BatchNorm.fold` returns the float32 ``(mul, add)`` of the ghost
+form's affine map from given statistics (training: it also updates the
+running statistics) or from the running statistics (eval): the JAX
+``BNAffine`` that the fused-backward bottleneck uses.
+
 Parameters and buffers keep the reference torch names (``weight``,
 ``bias``, ``running_mean``, ``running_var``) so ``state_dict`` keys match
 the reference checkpoints.  ``momentum`` is the flax convention (weight of
@@ -34,11 +39,22 @@ the old running value, 0.9 == torch's 0.1).
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 from torch import nn
 
 BN_MOMENTUM = 0.9
 BN_EPSILON = 1e-5
+
+
+def ghost_stats(xs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Float32 mean and biased fast variance ``max(E[x^2] - E[x]^2, 0)``
+    over every dimension but the channels (dim 1 of NCHW)."""
+    xs = xs.float()
+    mean = xs.mean(dim=(0, 2, 3))
+    mean2 = xs.square().mean(dim=(0, 2, 3))
+    return mean, torch.maximum(mean2 - mean.square(), mean2.new_zeros(()))
 
 
 class BatchNorm(nn.Module):
@@ -65,16 +81,39 @@ class BatchNorm(nn.Module):
     def _batch_stats(self, x: torch.Tensor):
         """Mean and biased fast variance of the window; updates the
         running statistics."""
-        xs = x if self.stats_rows <= 0 else x[:self.stats_rows]
-        xs = xs.float()
-        mean = xs.mean(dim=(0, 2, 3))
-        mean2 = xs.square().mean(dim=(0, 2, 3))
-        var = torch.maximum(mean2 - mean.square(), mean2.new_zeros(()))
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mean, var = ghost_stats(
+            x if self.stats_rows <= 0 else x[:self.stats_rows])
+        self._update_running(mean, var)
         return mean, var
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+
+    def _fold(self, mean: torch.Tensor, var: torch.Tensor):
+        inv = torch.reciprocal(torch.sqrt(var + self.eps))
+        return inv * self.weight, self.bias - mean * inv * self.weight
+
+    def fold(self, mean: Optional[torch.Tensor] = None,
+             var: Optional[torch.Tensor] = None):
+        """Float32 ``(mul, add)`` of the affine map, the JAX ``BNAffine``.
+
+        In training mode the batch statistics ``(mean, var)`` are given
+        (the fused bottleneck's ghost pre-pass computes them) and update
+        the running statistics; in eval mode the running statistics are
+        folded.  ``mul = scale / sqrt(var + eps)``, ``add = bias - mean *
+        mul``, written as ``models/norm.py:77-80`` of the JAX package.
+        """
+        if self.training:
+            if mean is None or var is None:
+                raise ValueError("BatchNorm.fold in training mode needs the "
+                                 "batch statistics (mean, var)")
+            self._update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return self._fold(mean, var)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
@@ -83,10 +122,8 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         c = self._channel
         if self.stats_rows > 0:
-            inv = torch.reciprocal(torch.sqrt(var + self.eps))
-            mul = (inv * self.weight).to(x.dtype)
-            add = (self.bias - mean * inv * self.weight).to(x.dtype)
-            return x * c(mul) + c(add)
+            mul, add = self._fold(mean, var)
+            return x * c(mul.to(x.dtype)) + c(add.to(x.dtype))
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = x.float() - c(mean)
         return (y * c(mul) + c(self.bias)).to(x.dtype)

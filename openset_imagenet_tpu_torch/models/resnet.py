@@ -76,17 +76,30 @@ class Dense(nn.Module):
         return y
 
 
+def _add_relu(y: torch.Tensor, residual: torch.Tensor,
+              boundary_mask: bool) -> torch.Tensor:
+    """The block boundary ``relu(y + residual)``; with ``boundary_mask``
+    its backward reads an int8 gate (``masked_add_relu``)."""
+    if boundary_mask:
+        from ..experimental.fused_block import masked_add_relu
+
+        return masked_add_relu(y, residual)
+    return F.relu(y + residual)
+
+
 class BasicBlock(nn.Module):
     """3x3 -> 3x3 residual block (expansion 1) for resnet18/34 and tiny."""
 
     expansion = 1
 
     def __init__(self, cin: int, filters: int, stride: int, norm,
-                 groups: int = 1, base_width: int = 64, device=None):
+                 groups: int = 1, base_width: int = 64,
+                 boundary_mask: bool = False, device=None):
         super().__init__()
         if groups != 1 or base_width != 64:
             raise ValueError("groups/base_width require Bottleneck variants "
                              "(resnext*/wide_resnet*)")
+        self.boundary_mask = boundary_mask
         self.conv1 = Conv(cin, filters, 3, stride, 1, device=device)
         self.bn1 = norm(filters, device=device)
         self.conv2 = Conv(filters, filters, 3, 1, 1, device=device)
@@ -101,7 +114,7 @@ class BasicBlock(nn.Module):
         y = F.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + residual)
+        return _add_relu(y, residual, self.boundary_mask)
 
 
 class Bottleneck(nn.Module):
@@ -109,13 +122,32 @@ class Bottleneck(nn.Module):
 
     Inner width ``int(filters * base_width / 64) * groups`` as in
     torchvision (ResNeXt: groups=32; Wide-ResNet: base_width=128).
+
+    ``fused`` runs the block as :func:`..experimental.fused_block.
+    bottleneck_fused` (the JAX ``Bottleneck._fused_call``, ``models/
+    resnet.py:249-306`` there) with the same parameters and buffers.  In
+    training a ghost pre-pass over the first ``bn1.stats_rows`` rows takes
+    every batch-norm's statistics (plain autograd, the only route by which
+    gradients reach them) and :meth:`..norm.BatchNorm.fold` turns them into
+    ``(mul, add)``; in eval the running statistics are folded.
+    ``use_kernel`` is the fused backward's K5 route (None: by device;
+    False: the plain site).
     """
 
     expansion = 4
 
     def __init__(self, cin: int, filters: int, stride: int, norm,
-                 groups: int = 1, base_width: int = 64, device=None):
+                 groups: int = 1, base_width: int = 64,
+                 boundary_mask: bool = False, fused: bool = False,
+                 device=None):
         super().__init__()
+        if fused and (groups != 1 or base_width != 64):
+            raise ValueError("fused_blocks supports only the standard "
+                             "bottleneck (groups=1, base_width=64)")
+        self.stride = stride
+        self.boundary_mask = boundary_mask
+        self.fused = fused
+        self.use_kernel = None
         width = int(filters * (base_width / 64.0)) * groups
         out = filters * 4
         self.conv1 = Conv(cin, width, 1, device=device)
@@ -131,11 +163,54 @@ class Bottleneck(nn.Module):
                 norm(out, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return self._fused_forward(x)
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + residual)
+        return _add_relu(y, residual, self.boundary_mask)
+
+    def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ..experimental.fused_block import (_affine, _conv3x3, _pw,
+                                                bottleneck_fused, ghost_stats)
+
+        dt, s = x.dtype, self.stride
+        w1, w2, w3 = self.conv1.weight, self.conv2.weight, self.conv3.weight
+        bn1, bn2, bn3 = self.bn1, self.bn2, self.bn3
+        wd = muld = addd = None
+        if self.downsample is not None:
+            wd, bnd = self.downsample[0].weight, self.downsample[1]
+        if self.training:
+            rows = bn1.stats_rows
+            if rows <= 0:
+                raise ValueError(
+                    "fused bottleneck training requires ghost BN "
+                    "(model.bn_stats_rows > 0); full-batch statistics "
+                    "would double the forward pass")
+            # Ghost pre-pass on the leading rows, folding each batch-norm
+            # as soon as its statistics exist (rows are independent, so
+            # these are the full forward's leading-row values, up to the
+            # summation order a conv picks for this batch size).
+            xs = x[:rows]
+            z1s = _pw(xs, w1.to(dt))
+            mul1, add1 = bn1.fold(*ghost_stats(z1s))
+            z2s = _conv3x3(torch.relu(_affine(z1s, mul1, add1)), w2.to(dt), s)
+            mul2, add2 = bn2.fold(*ghost_stats(z2s))
+            z3s = _pw(torch.relu(_affine(z2s, mul2, add2)), w3.to(dt))
+            mul3, add3 = bn3.fold(*ghost_stats(z3s))
+            if wd is not None:
+                zds = _pw(xs[:, :, ::s, ::s], wd.to(dt))
+                muld, addd = bnd.fold(*ghost_stats(zds))
+        else:
+            mul1, add1 = bn1.fold()
+            mul2, add2 = bn2.fold()
+            mul3, add3 = bn3.fold()
+            if wd is not None:
+                muld, addd = bnd.fold()
+        return bottleneck_fused(x, w1, w2, w3, mul1, add1, mul2, add2, mul3,
+                                add3, wd, muld, addd, stride=s,
+                                use_kernel=self.use_kernel)
 
 
 class ResNetBase(nn.Module):
@@ -143,7 +218,7 @@ class ResNetBase(nn.Module):
 
     def __init__(self, block, stage_sizes: Sequence[int], width: int,
                  groups: int, base_width: int, fc_layer_dim: int, norm,
-                 device=None):
+                 device=None, **block_kw):
         super().__init__()
         self.conv1 = Conv(3, width, 7, 2, 3, device=device)
         self.bn1 = norm(width, device=device)
@@ -154,7 +229,7 @@ class ResNetBase(nn.Module):
                 filters = width * 2 ** i
                 stride = 2 if i > 0 and j == 0 else 1
                 blocks.append(block(cin, filters, stride, norm, groups,
-                                    base_width, device=device))
+                                    base_width, device=device, **block_kw))
                 cin = filters * block.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.n_stages = len(stage_sizes)
@@ -171,8 +246,6 @@ class ResNetBase(nn.Module):
 # ROADMAP Queue 1 items that bring each deferred JAX model option.
 _DEFERRED = {
     "remat": "item 9 (experimental knobs)",
-    "fused_blocks": "item 9 (experimental knobs)",
-    "boundary_mask": "item 9 (experimental knobs)",
     "folded": "item 6 (inference optimization)",
     "quantized": "item 6 (inference optimization)",
 }
@@ -191,9 +264,12 @@ class ResNet50(nn.Module):
     ``space_to_depth`` stores the same ``[7, 7, 3, F]`` stem kernel as the
     JAX model's ``SpaceToDepthStem`` and computes the identical arithmetic,
     so it is run here as the plain 7x7/2 conv.  ``dot_1x1`` is the same
-    math as the 1x1 conv and runs as the conv.  ``remat``,
-    ``fused_blocks``, ``boundary_mask``, ``folded`` and ``quantized`` are
-    not ported yet and raise ``NotImplementedError``.
+    math as the 1x1 conv and runs as the conv.  ``boundary_mask`` saves
+    every block boundary's ReLU gate as int8; ``fused_blocks`` runs each
+    Bottleneck as the fused-backward block (training needs
+    ``bn_stats_rows > 0``; Bottleneck variants with ``groups == 1`` and
+    ``base_width == 64`` only).  ``remat``, ``folded`` and ``quantized``
+    are not ported yet and raise ``NotImplementedError``.
     """
 
     def __init__(self, fc_layer_dim: int = 1000, out_features: int = 1000,
@@ -206,21 +282,27 @@ class ResNet50(nn.Module):
                  folded: bool = False, quantized: bool = False,
                  device=None):
         super().__init__()
-        requested = dict(remat=remat, fused_blocks=fused_blocks,
-                         boundary_mask=boundary_mask, folded=folded,
-                         quantized=quantized)
+        requested = dict(remat=remat, folded=folded, quantized=quantized)
         for name, value in requested.items():
             if value not in (False, None, "none"):
                 raise NotImplementedError(
                     f"model option {name}={value!r} is not ported yet "
                     f"(ROADMAP Queue 1 {_DEFERRED[name]})")
         del space_to_depth, dot_1x1  # same arithmetic as the plain convs
+        block = block or Bottleneck
+        block_kw = {"boundary_mask": bool(boundary_mask)}
+        if fused_blocks:
+            if block is not Bottleneck:
+                raise ValueError("fused_blocks requires Bottleneck variants"
+                                 " (resnet50/101/152)")
+            block_kw["fused"] = True
         self.dtype = dtype
         self.bn_stats_rows = int(bn_stats_rows)
+        self.fused_blocks = bool(fused_blocks)
         norm = functools.partial(BatchNorm, stats_rows=self.bn_stats_rows)
         self.resnet_base = ResNetBase(
-            block or Bottleneck, stage_sizes, width, groups, base_width,
-            fc_layer_dim, norm, device=device)
+            block, stage_sizes, width, groups, base_width, fc_layer_dim,
+            norm, device=device, **block_kw)
         self.logits = Dense(fc_layer_dim, out_features, bias=logit_bias,
                             device=device)
 

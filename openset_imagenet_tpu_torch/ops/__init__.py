@@ -1,1 +1,2 @@
-"""Losses, fused loss kernels and confidence metrics."""
+"""Losses, fused loss kernels, the fused bottleneck's site kernel (K5) and
+confidence metrics."""

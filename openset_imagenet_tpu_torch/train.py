@@ -287,10 +287,17 @@ def make_tail_step(loss_fn: Callable, model: ResNet50, n_tail: int,
     InputPipeline._local_slice``), so a window of exactly ``n_tail``
     leading rows sees only valid samples.  A ghost window ``0 < G <=
     n_tail`` already does, and then the regular step serves.  ``None``
-    when there is no ragged tail.
+    when there is no ragged tail.  A ``fused_blocks`` model trains no
+    ragged tail, as the JAX worker drops it (``train.py:905-909``): build
+    its pipeline with ``drop_remainder=True`` (``n_tail`` 0).
     """
     if not n_tail:
         return None
+    if model.fused_blocks:
+        raise ValueError(
+            f"a fused_blocks model trains no ragged tail batch ({n_tail} "
+            "rows): build the pipeline with drop_remainder=True, as the JAX "
+            "worker drops that batch")
     if 0 < model.bn_stats_rows <= n_tail:
         return train_step
     return make_train_step(loss_fn, bn_stats_rows=n_tail)

@@ -1,6 +1,8 @@
-"""The port's Triton loss kernels against their plain versions, on the GPU.
+"""The port's kernels against their plain versions, on the GPU.
 
-Marked ``cuda``: skipped where there is no CUDA device or no Triton.  On a
+The Triton loss kernels (K1-K4) and the CUDA C++ fused-bottleneck site
+(K5, built with ``nvcc`` at first use).  Marked ``cuda``: skipped where
+there is no CUDA device (or, for K1-K4, no Triton).  On a
 GPU host run ``python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py`` (``--noconftest``: the suite's conftest imports
 jax, which the GPU host need not have).  Tolerance: rtol 1e-5 on the sums
@@ -180,3 +182,162 @@ def test_train_step_on_cuda_goes_through_the_kernels(cuda):
     assert fl.LAUNCHES["entropic_fwd"] == before["entropic_fwd"] + 1
     assert fl.LAUNCHES["entropic_bwd"] == before["entropic_bwd"] + 1
     assert np.isfinite(float(m["loss_sum"])) and float(m["count"]) == 8
+
+
+# -- K5: the fused bottleneck's pointwise backward site (CUDA C++) ----------
+#
+# Held to its plain version on the card: gp exactly; dW and the channel
+# sums within rtol 1e-4 in norm (the same bf16 operands, another summation
+# order); dx within rtol 2e-2, atol 1e-2 in bf16 and 1e-5 in f32 (the JAX
+# package's kernel-vs-reference bound, tests/test_fused_block.py:65-69).
+
+K5_FORMS = {"tail": (True, True, False, True),      # in_act, mask, ds, gp
+            "head_ds": (False, False, True, False),
+            "head": (False, False, False, False)}
+
+
+@pytest.fixture
+def cuda_k5():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _k5_args(device, m, ci, co, dtype, form, seed=0):
+    in_act, has_mask, has_ds, emit_gp = K5_FORMS[form]
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=dtype: torch.from_numpy(
+        np.asarray(a, np.float32)).to(device=device, dtype=dt)
+    args = [t(rng.standard_normal((m, co))), t(rng.standard_normal((m, co))),
+            (torch.from_numpy(rng.integers(0, 2, (m, co)).astype(np.int8))
+             .to(device) if has_mask else None),
+            t(rng.standard_normal((m, ci))),
+            t(rng.standard_normal((m, ci))) if has_ds else None,
+            t(rng.standard_normal((ci, co)) * 0.3),
+            t(rng.standard_normal(co), torch.float32),
+            t(rng.standard_normal(co), torch.float32),
+            t(rng.standard_normal(ci), torch.float32) if in_act else None,
+            t(rng.standard_normal(ci), torch.float32) if in_act else None]
+    return args, dict(in_act=in_act, emit_gp=emit_gp)
+
+
+def _k5_close(got, ref, dtype):
+    dx, gp, dw, so, si = got
+    rdx, rgp, rdw, rso, rsi = ref
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    assert (gp is None) == (rgp is None)
+    if gp is not None:
+        assert torch.equal(gp, rgp)
+    for a, b in [(dw, rdw), *zip(so, rso), *zip(si, rsi)]:
+        if b is None:
+            assert a is None
+            continue
+        assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-6
+    tol = (2e-2, 1e-2) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+    torch.testing.assert_close(dx.float(), rdx.float(), rtol=tol[0],
+                               atol=tol[1])
+
+
+@pytest.mark.parametrize("shape", [(512, 16, 24), (300, 64, 256),
+                                   (1000, 72, 40), (4096, 256, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("form", sorted(K5_FORMS))
+def test_k5_kernel_matches_plain(cuda_k5, form, dtype, shape):
+    from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
+
+    args, kw = _k5_args(cuda_k5, *shape, dtype, form)
+    before = fbb.LAUNCHES["fused_block_bwd"]
+    got = fbb.bwd_site(*args, **kw)
+    assert fbb.LAUNCHES["fused_block_bwd"] == before + 1
+    again = fbb.bwd_site(*args, **kw)
+    torch.cuda.synchronize()
+    _k5_close(got, fbb.bwd_site_plain(*args, **kw), dtype)
+    flat = lambda out: [t for t in (out[0], out[1], out[2], *out[3], *out[4])
+                        if t is not None]
+    for a, b in zip(flat(got), flat(again)):
+        assert torch.equal(a, b)   # the same bits on a second launch
+
+
+def test_k5_refuses_what_it_does_not_take(cuda_k5):
+    from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
+
+    args, kw = _k5_args(cuda_k5, 64, 16, 32, torch.bfloat16, "tail")
+    bad = list(args)
+    bad[1] = args[1].cpu()
+    with pytest.raises(ValueError, match="z is on cpu"):
+        fbb.bwd_site(*bad, **kw)
+    bad = [a.half() if a is not None and a.dtype == torch.bfloat16 else a
+           for a in args]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fbb.bwd_site(*bad, **kw)
+    bad = list(args)
+    bad[3] = args[3].t().contiguous().t()
+    with pytest.raises(ValueError, match="row-major"):
+        fbb.bwd_site(*bad, **kw)
+    bad = list(args)
+    bad[2] = args[2].bool()
+    with pytest.raises(TypeError, match="mask must be torch.int8"):
+        fbb.bwd_site(*bad, **kw)
+    with pytest.raises(ValueError, match=r"w must be \(16, 32\)"):
+        bad = list(args)
+        bad[5] = args[5].t().contiguous()
+        fbb.bwd_site(*bad, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("downsample,stride", [(False, 1), (True, 2)])
+def test_block_autograd_kernel_matches_plain_site(cuda_k5, dtype, downsample,
+                                                  stride):
+    from openset_imagenet_tpu_torch.experimental import fused_block as fb
+
+    rng = np.random.default_rng(5)
+    f, cin = 16, (32 if downsample else 64)
+    t = lambda *s, scale=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * scale).astype(np.float32)).to(cuda_k5)
+    args = dict(x0=t(4, cin, 14, 14).to(dtype).contiguous(
+                    memory_format=torch.channels_last),
+                w1=t(f, cin, 1, 1, scale=0.2), w2=t(f, f, 3, 3, scale=0.1),
+                w3=t(4 * f, f, 1, 1, scale=0.2), mul1=t(f), add1=t(f),
+                mul2=t(f), add2=t(f), mul3=t(4 * f), add3=t(4 * f))
+    if downsample:
+        args.update(wd=t(4 * f, cin, 1, 1, scale=0.2), muld=t(4 * f),
+                    addd=t(4 * f))
+    for v in args.values():
+        v.requires_grad_()
+    torch.backends.cudnn.deterministic = True
+    grads = []
+    for use_kernel in (None, False):
+        out = fb.bottleneck_fused(**args, stride=stride,
+                                  use_kernel=use_kernel)
+        r = torch.ones_like(out).float() * 0.01
+        grads.append(torch.autograd.grad((out.float() * r).sum(),
+                                         list(args.values())))
+    torch.backends.cudnn.deterministic = False
+    bound = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, a, b in zip(args, *grads):
+        diff = float((a.float() - b.float()).norm())
+        assert diff <= bound * float(b.float().norm()) + 1e-6, name
+
+
+def test_fused_train_step_on_cuda_goes_through_k5(cuda_k5):
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.config import NameSpace
+    from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
+
+    model = engine.build_model(NameSpace({"model": {
+        "variant": "tiny50", "bn_stats_rows": 4, "fused_blocks": True,
+        "boundary_mask": True}}), 8).to(cuda_k5)
+    model = model.to(memory_format=torch.channels_last)
+    state = engine.create_state(model, engine.build_optimizer(
+        NameSpace({"lr": 1e-3}), 1))
+    step = engine.make_train_step(engine.make_loss_fn("entropic"))
+    rng = np.random.default_rng(0)
+    before = fbb.LAUNCHES["fused_block_bwd"]
+    state, m = step(state, rng.integers(0, 256, (8, 48, 48, 3), np.uint8),
+                    rng.integers(-1, 8, 8).astype(np.int32),
+                    np.ones(8, np.float32))
+    assert fbb.LAUNCHES["fused_block_bwd"] == before + 2 * 4
+    assert np.isfinite(float(m["loss_sum"]))
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())

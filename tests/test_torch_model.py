@@ -169,9 +169,10 @@ def test_bfloat16_forward_matches_jax(variant, bn_rows):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("remat", "elementwise"), ("fused_blocks", True),
-    ("boundary_mask", True)])
+    ("remat", "elementwise"), ("folded", True), ("quantized", True)])
 def test_deferred_options_raise(option, value):
+    from openset_imagenet_tpu_torch.models.resnet import ResNet50
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_resnet("tiny", fc_layer_dim=3, out_features=3,
-                     **{option: value})
+        ResNet50(fc_layer_dim=3, out_features=3, device="meta",
+                 **{option: value})

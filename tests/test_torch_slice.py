@@ -214,6 +214,8 @@ def test_import_leaves_jax_unloaded():
         "import openset_imagenet_tpu_torch.pipeline\n"
         "import openset_imagenet_tpu_torch.dataset\n"
         "import openset_imagenet_tpu_torch.convert\n"
+        "import openset_imagenet_tpu_torch.experimental.fused_block\n"
+        "import openset_imagenet_tpu_torch.ops.fused_block_bwd\n"
         "heavy = ('jax', 'flax', 'optax', 'openset_imagenet_tpu', 'yaml',\n"
         "         'msgpack', 'pandas', 'PIL', 'triton')\n"
         "print([m for m in sys.modules if m.split('.')[0] in heavy])\n")
