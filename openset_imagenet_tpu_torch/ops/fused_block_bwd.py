@@ -26,31 +26,29 @@ copied.  ``w`` is ``[ci, co]`` in the activation dtype.
 to the CUDA C++ kernel in ``csrc/fused_block_bwd.cu``, or raise.  The
 kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/`` of the checkout (a shared library named by a hash of
-the source) and bound with ``ctypes``; nothing GPU-only is imported or
-built when this module is imported.  ``LAUNCHES["fused_block_bwd"]``
-counts the site calls that launched the kernel.
+the source) and bound with ``ctypes``, by :mod:`._build`; nothing
+GPU-only is imported or built when this module is imported.
+``LAUNCHES["fused_block_bwd"]`` counts the site calls that launched the
+kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 from typing import Optional, Tuple
 
 import torch
+
+from . import _build
 
 Tensor = torch.Tensor
 
 LAUNCHES = {"fused_block_bwd": 0}
 
-_PACKAGE = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = _PACKAGE / "csrc" / "fused_block_bwd.cu"
-BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
+SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / \
+    "fused_block_bwd.cu"
 # Blocks the weight-gradient stage aims for (four per SM of an H100); the
 # M-splits follow from it and the shape alone, so a shape always reduces
 # in the same order.
@@ -103,43 +101,14 @@ def bwd_site_plain(g: Tensor, z: Tensor, mask: Optional[Tensor], x: Tensor,
 
 # -- the kernel ----------------------------------------------------------------
 
-def _nvcc() -> str:
-    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if home and (pathlib.Path(home) / "bin" / "nvcc").exists():
-            return str(pathlib.Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, "
-                           "PATH): the K5 kernel cannot be built")
-    return found
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel's shared library."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"fused_block_bwd_{digest}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-        out = subprocess.run(cmd, capture_output=True, text=True)
-        if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({out.returncode}):\n"
-                               f"{out.stdout}\n{out.stderr}")
-        (BUILD_DIR / f"fused_block_bwd_{digest}.ptxas.txt").write_text(
-            out.stderr)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fbb_workspace_floats.argtypes = [ll, i, i, i]
-    lib.fbb_workspace_floats.restype = ll
-    lib.fbb_site.argtypes = ([i] + [p] * 10 + [p] * 5 + [p, p] +
-                             [ll, i, i, i, i, i, p])
-    lib.fbb_site.restype = i
-    return lib
+    return _build.load(SOURCE, "fused_block_bwd", {
+        "fbb_workspace_floats": ([ll, i, i, i], ll),
+        "fbb_site": ([i] + [p] * 10 + [p] * 5 + [p, p] +
+                     [ll, i, i, i, i, i, p], i)})
 
 
 def _splits(m: int, ci: int, co: int) -> int:

@@ -1,8 +1,9 @@
 """The port's kernels against their plain versions, on the GPU.
 
-The Triton loss kernels (K1-K4) and the CUDA C++ fused-bottleneck site
-(K5, built with ``nvcc`` at first use).  Marked ``cuda``: skipped where
-there is no CUDA device (or, for K1-K4, no Triton).  On a
+The Triton loss kernels (K1-K4), the CUDA C++ fused-bottleneck site (K5)
+and split tail site (K6), both built with ``nvcc`` at first use, and the
+Triton streaming probes (K7).  Marked ``cuda``: skipped where there is no
+CUDA device (or, for the Triton kernels, no Triton).  On a
 GPU host run ``python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py`` (``--noconftest``: the suite's conftest imports
 jax, which the GPU host need not have).  Tolerance: rtol 1e-5 on the sums
@@ -341,3 +342,112 @@ def test_fused_train_step_on_cuda_goes_through_k5(cuda_k5):
     assert fbb.LAUNCHES["fused_block_bwd"] == before + 2 * 4
     assert np.isfinite(float(m["loss_sum"]))
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+# -- K6: the split tail-site backward (CUDA C++) ------------------------------
+#
+# Held to its plain version (the split's dataflow): gp exactly; dW and the
+# four channel sums within 1e-4 in norm; dx within rtol 2e-2, atol 1e-2 in
+# bf16 and rtol 1e-5, atol 1e-5 of its largest value in f32.  Against K5's
+# unified site: gp exactly, dx within 8e-2 (bf16, the JAX test's bound) or
+# 1e-5, dW and the sums within the same bounds in norm.
+
+
+def _k6_args(device, m, ci, co, dtype, seed=0):
+    args, _ = _k5_args(device, m, ci, co, dtype, "tail", seed)
+    g, z, mask, x, _, w, mul_o, add_o, mul_i, add_i = args
+    return [g, z, mask, x, w, mul_o, mul_i, add_i], add_o
+
+
+def _rel_norm(a, b):
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+@pytest.mark.parametrize("shape", [(512, 16, 24), (300, 64, 256),
+                                   (1000, 72, 40), (1003, 37, 21),
+                                   (4096, 256, 64), (3000, 512, 2048)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k6_kernel_matches_plain_and_k5(cuda_k5, dtype, shape):
+    from openset_imagenet_tpu_torch.experimental import split_site as ss
+    from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
+
+    args, add_o = _k6_args(cuda_k5, *shape, dtype)
+    before = ss.LAUNCHES["split_site"]
+    got = ss.tail_site_split(*args)
+    assert ss.LAUNCHES["split_site"] == before + 1
+    again = ss.tail_site_split(*args)
+    torch.cuda.synchronize()
+    flat = lambda out: [out[0], out[1], out[2], *out[3], *out[4]]
+    for a, b in zip(flat(got), flat(again)):
+        assert torch.equal(a, b)   # the same bits on a second launch
+    dx, gp, dw, so, si = got
+    rdx, rgp, rdw, rso, rsi = ss.tail_site_split_plain(*args)
+    assert dx.dtype == gp.dtype == dtype and dw.dtype == torch.float32
+    assert torch.equal(gp, rgp)
+    for a, b in [(dw, rdw), *zip(so, rso), *zip(si, rsi)]:
+        assert _rel_norm(a, b) <= 1e-4
+    # In f32, atol 1e-5 of the largest |dx|: a 2048-deep f32 product summed
+    # in another order than cuBLAS's is off by ~1e-6 of its terms, which
+    # is more than 1e-5 of an entry that the sum cancels to near zero.
+    tol = ((2e-2, 1e-2) if dtype == torch.bfloat16
+           else (1e-5, 1e-5 * float(rdx.abs().max())))
+    torch.testing.assert_close(dx.float(), rdx.float(), rtol=tol[0],
+                               atol=tol[1])
+    g, z, mask, x, w, mul_o, mul_i, add_i = args
+    udx, ugp, udw, uso, usi = fbb.bwd_site(g, z, mask, x, None, w, mul_o,
+                                           add_o, mul_i, add_i, in_act=True,
+                                           emit_gp=True)
+    assert torch.equal(gp, ugp)
+    tol = 8e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(dx.float(), udx.float(), rtol=tol, atol=tol)
+    for a, b in [(dw, udw), *zip(so, uso), *zip(si, usi)]:
+        assert _rel_norm(a, b) <= tol
+
+
+def test_k6_refuses_what_it_does_not_take(cuda_k5):
+    from openset_imagenet_tpu_torch.experimental import split_site as ss
+
+    args, _ = _k6_args(cuda_k5, 64, 16, 32, torch.bfloat16)
+    bad = list(args)
+    bad[1] = args[1].cpu()
+    with pytest.raises(ValueError, match="z is on cpu"):
+        ss.tail_site_split(*bad)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ss.tail_site_split(*[a.half() if a.dtype == torch.bfloat16 else a
+                             for a in args])
+    with pytest.raises(TypeError, match="out_dtype"):
+        ss.tail_site_split(*args, out_dtype=torch.float32)
+    bad = list(args)
+    bad[3] = args[3].t().contiguous().t()
+    with pytest.raises(ValueError, match="row-major"):
+        ss.tail_site_split(*bad)
+
+
+# -- K7: the streaming probes (Triton) ----------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(8, 3136, 256), (3, 1001, 256),
+                                   (1, 7, 3)])
+@pytest.mark.parametrize("probe", ["axpy", "relu_mask"])
+def test_k7_kernel_matches_plain_bit_for_bit(cuda, probe, shape):
+    from openset_imagenet_tpu_torch.ops import stream_probe as sp
+
+    gen = torch.Generator(device=cuda).manual_seed(len(shape) + shape[1])
+    a, b = (torch.randn(*shape, generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    before = sp.LAUNCHES[f"stream_{probe}"]
+    got = getattr(sp, probe)(a, b)
+    assert sp.LAUNCHES[f"stream_{probe}"] == before + 1
+    assert torch.equal(got, getattr(sp, f"{probe}_plain")(a, b))
+
+
+def test_k7_refuses_what_it_does_not_take(cuda):
+    from openset_imagenet_tpu_torch.ops import stream_probe as sp
+
+    x = torch.zeros(2, 8, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        sp.axpy(x.float(), x.float())
+    with pytest.raises(ValueError, match="one shape"):
+        sp.relu_mask(x, x[:1])
+    with pytest.raises(ValueError, match="operands on"):
+        sp.axpy(x, x.cpu())

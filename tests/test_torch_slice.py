@@ -216,6 +216,10 @@ def test_import_leaves_jax_unloaded():
         "import openset_imagenet_tpu_torch.convert\n"
         "import openset_imagenet_tpu_torch.experimental.fused_block\n"
         "import openset_imagenet_tpu_torch.ops.fused_block_bwd\n"
+        "import openset_imagenet_tpu_torch.experimental.split_site\n"
+        "import openset_imagenet_tpu_torch.ops.stream_probe\n"
+        "import openset_imagenet_tpu_torch.tools.bench_split_site\n"
+        "import openset_imagenet_tpu_torch.tools.bench_stream\n"
         "heavy = ('jax', 'flax', 'optax', 'openset_imagenet_tpu', 'yaml',\n"
         "         'msgpack', 'pandas', 'PIL', 'triton')\n"
         "print([m for m in sys.modules if m.split('.')[0] in heavy])\n")
