@@ -15,6 +15,10 @@ from a seed), and checks what comes out:
    the backwards (``entropic_bwd``, ``ce_bwd``; gradients within rtol
    1e-5, atol 1e-8, masked rows exactly 0, autograd through the public
    losses equal to the plain backward); same bits on a second launch;
+   K3 (``ce_fwd``) is one kernel launch per call (profiler), bit-equal
+   over 50 launches and over a CUDA-graph replay of 20 calls at [64, 117],
+   [256, 117] and [1000, 1000], and timed beside ``F.cross_entropy`` in
+   both of its grids (one program, or programs and a ticket);
 3. serving: a reference ``.pth`` -> ``OpenSetPredictor(device="cuda")``,
    ``warmup(64)``, requests of 1, 3, 17 and 64 images; shapes, finiteness,
    scores that do not depend on the padding bucket, rejection, agreement
@@ -54,12 +58,15 @@ from a seed), and checks what comes out:
    Prints train-step imgs/s of both forms in turns and their peak memory.
 
 Phase 2b holds K5 (``ops/fused_block_bwd.py``, CUDA C++ built by ``nvcc``
-at first use) against its plain version at the resnet50 site shapes of
-stages 1 and 4 (tail site: int8 mask, input activation, gp out; head
-sites with and without the skip gradient), at a ragged M, in bf16 and
-f32: gp exact, dW and the channel sums within 1e-4 relative in norm, dx
-within rtol 2e-2, atol 1e-2 (bf16) or 1e-5 (f32), the same bits on a
-second launch; with its times at the stage-1 tail and head and the
+at first use) against its plain version at every distinct resnet50 site
+shape at batch 256 (tails: int8 mask, input activation, gp out; heads
+with and without the skip gradient; the fused route at M = 802,816, the
+tiled one below), at a ragged M and ragged channels, in bf16 (and f32 at
+stage 4 and the ragged shapes): gp exact, dW and the channel sums within
+1e-4 relative in norm, dx within rtol 2e-2, atol 1e-2 (bf16) or 1e-5
+(f32), the same bits on a second launch.  It prints each resnet50 site's
+route, device time, bytes and operations bound and share of that bound,
+and the plain version's time at the stage-1 tail and head and the
 stage-4 tail.  K5 and K6 are built by two ``nvcc`` processes at once,
 while phase 2 builds the Triton kernels.
 
@@ -252,6 +259,90 @@ def kernel_checks(torch, fl):
     return max_err, timing, library
 
 
+def kernels_of(torch, fn, calls):
+    """Names of the kernels ``calls`` calls of ``fn`` launch, from
+    ``torch.profiler`` (after one warm-up window, since a first window
+    can come back empty)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names
+
+
+def k3_checks(torch, fl):
+    """K3 as one launch: one kernel per call (profiler), the same bits over
+    50 launches and over a CUDA-graph replay of 20 calls, at [64, 117],
+    [256, 117] and [1000, 1000] (many programs); its device time beside
+    ``F.cross_entropy``'s, and the times of both of its grids."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(SEED + 6)
+    for b, c in ((64, 117), (256, 117), (1000, 1000)):
+        logits = torch.from_numpy((rng.normal(size=(b, c)) * 3).astype(
+            np.float32)).cuda()
+        labels = torch.from_numpy(rng.integers(0, c, b).astype(np.int32)
+                                  ).cuda()
+        class_w = torch.from_numpy(rng.uniform(0.2, 2.0, c).astype(
+            np.float32)).cuda()
+        rows = class_w[labels.long()]
+        call = lambda: torch.stack(fl.ce_sums(logits, labels, rows))
+        first = call()
+        where = f"K3 [{b},{c}]"
+        check(all(torch.equal(call(), first) for _ in range(50)),
+              f"{where}: 50 launches differ")
+        names = kernels_of(torch, lambda: fl.ce_sums(logits, labels, rows),
+                           calls=10)
+        check(len(names) == 10 and all("ce_fwd_once" in n for n in names),
+              f"{where}: 10 calls launched {names}")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph, outs = torch.cuda.CUDAGraph(), []
+        with torch.cuda.graph(graph):
+            for _ in range(20):
+                outs.append(call())
+        graph.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(o, first) for o in outs),
+              f"{where}: a graph replay differs from the eager call")
+        grid = fl._grid(b, c, fl._CE_TILE_ELEMS)[3]
+        line = (f"{where}: one launch per call ({names[0]}), {grid} "
+                "programs, bit-equal over 50 launches and a 20-call replay")
+        if c == 117:
+            labels64 = labels.long()
+            kernel_ms = graph_ms(lambda: fl.ce_sums(logits, labels, rows))
+            library_ms = graph_ms(lambda: F.cross_entropy(
+                logits, labels64, weight=class_w, reduction="sum"))
+            line += (f"; dev_us {kernel_ms * 1e3:.3f}, F.cross_entropy "
+                     f"{library_ms * 1e3:.3f}")
+            # The other grids the kernel takes: programs of 2048-element
+            # tiles and a ticket (K1's tile), and one program holding
+            # every row.
+            keep = fl._CE_TILE_ELEMS
+            for label, elems in (("2048-element tiles", 2048),
+                                 ("one program", None)):
+                fl._CE_TILE_ELEMS = elems
+                try:
+                    ms = graph_ms(lambda: fl.ce_sums(logits, labels, rows))
+                    check(torch.allclose(torch.stack(fl.ce_sums(
+                        logits, labels, rows)), first, rtol=1e-5),
+                          f"{where}: {label}")
+                finally:
+                    fl._CE_TILE_ELEMS = keep
+                line += f", {label} {ms * 1e3:.3f}"
+        print(line)
+
+
 def grad_kernel_checks(torch, fl):
     """K2 and K4 against their plain versions; returns (max_err, timing)."""
     dev = torch.device("cuda")
@@ -361,20 +452,28 @@ def grad_kernel_checks(torch, fl):
 K5_FORMS = {"tail": (True, True, False, True),      # in_act, mask, ds, gp
             "head_ds": (False, False, True, False),
             "head": (False, False, False, False)}
-# name, M, ci, co, form, dtypes: the resnet50 site shapes at 224 px, batch
-# 256 (the stride sits on the 3x3 conv, so a block-1 head site runs at the
-# input resolution), and ragged M.
+# name, M, ci, co, form, dtypes: every distinct resnet50 site shape at 224
+# px, batch 256 (the stride sits on the 3x3 conv, so a block-1 head site
+# runs at the input resolution), then a ragged M and ragged channels.
 K5_CASES = [
     ("stage1 tail", 802816, 64, 256, "tail", ("bf16",)),
     ("stage1 head b1", 802816, 64, 64, "head", ("bf16",)),
     ("stage1 head", 802816, 256, 64, "head_ds", ("bf16",)),
-    ("stage4 tail", 12544, 512, 2048, "tail", ("bf16", "f32")),
+    ("stage2 head b1", 802816, 256, 128, "head", ("bf16",)),
+    ("stage2 tail", 200704, 128, 512, "tail", ("bf16",)),
+    ("stage2 head", 200704, 512, 128, "head_ds", ("bf16",)),
+    ("stage3 head b1", 200704, 512, 256, "head", ("bf16",)),
+    ("stage3 tail", 50176, 256, 1024, "tail", ("bf16",)),
+    ("stage3 head", 50176, 1024, 256, "head_ds", ("bf16",)),
     ("stage4 head b1", 50176, 1024, 512, "head", ("bf16", "f32")),
+    ("stage4 tail", 12544, 512, 2048, "tail", ("bf16", "f32")),
     ("stage4 head", 12544, 2048, 512, "head_ds", ("bf16", "f32")),
     ("ragged tail", 12544 + 77, 512, 2048, "tail", ("bf16", "f32")),
+    ("ragged s1 tail", 4096 + 3, 64, 256, "tail", ("bf16", "f32")),
     ("ragged head", 1000 + 3, 72, 40, "head_ds", ("bf16", "f32")),
 ]
-K5_TIMED = ("stage1 tail", "stage1 head", "stage4 tail")
+K5_SITES = 12             # the first twelve cases: the resnet50 sites
+K5_PLAIN_TIMED = ("stage1 tail", "stage1 head", "stage4 tail")
 
 
 def k5_inputs(torch, m, ci, co, form, dtype, seed):
@@ -396,10 +495,12 @@ def k5_inputs(torch, m, ci, co, form, dtype, seed):
 
 
 def k5_checks(torch, fbb):
-    """K5 against ``bwd_site_plain`` on the card; returns (max_err, timing
-    at the stage-1 tail in ms, the timing rows)."""
+    """K5 against ``bwd_site_plain`` on the card; returns (max_err, (kernel,
+    plain) device ms at the stage-1 tail)."""
+    from openset_imagenet_tpu_torch.tools import _card
+
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
-    max_err, rows = 0.0, []
+    max_err, rows, sites = 0.0, [], []
     for seed, (name, m, ci, co, form, names) in enumerate(K5_CASES):
         for dname in names:
             dtype = dtypes[dname]
@@ -434,7 +535,23 @@ def k5_checks(torch, fbb):
             max_err = max(max_err, float((dx.float() - rdx.float()).abs()
                                          .max()))
             del got, again, ref, dx, gp, dw, rdx, rgp, rdw
-            if name in K5_TIMED and dname == "bf16":
+            if seed < K5_SITES and dname == "bf16":
+                in_act, has_mask, has_ds, emit_gp = K5_FORMS[form]
+                nbytes, flops = fbb.traffic(
+                    m, ci, co, in_act=in_act, has_mask=has_mask,
+                    has_ds=has_ds, emit_gp=emit_gp)
+                route = fbb._plan(m, ci, co, dtype, in_act, has_mask, has_ds,
+                                  True, fbb._sm_count(0))[0]
+                # Where the fused route takes a site, the tiled route's
+                # time beside it: the measured side of the threshold.
+                tiled_ms = None if route != "fused" else graph_ms(
+                    lambda: fbb._kernel_site(*args, **kw, route="tiled"),
+                    calls=5, reps=5)
+                sites.append((name, m, ci, co, route,
+                              graph_ms(kernel, calls=5, reps=5),
+                              nbytes / _card.BYTES_PER_S * 1e3,
+                              flops / _card.BF16_FLOP_PER_S * 1e3, tiled_ms))
+            if name in K5_PLAIN_TIMED and dname == "bf16":
                 rows.append((name, m, ci, co, time_ms(kernel, reps=10),
                              time_ms(plain, reps=10),
                              graph_ms(kernel, calls=5, reps=5),
@@ -446,8 +563,17 @@ def k5_checks(torch, fbb):
     for name, m, ci, co, ms, pms, dms, pdms in rows:
         print(f"{name:16s} [{m},{ci}]x[{ci},{co}]".ljust(40) +
               f"{ms:.4f}   {pms:.4f}        {dms:.4f}   {pdms:.4f}")
+    print("K5 site          shape                 route   dev_ms    "
+          "bytes_ms  ops_ms    share_of_bound  tiled_route_ms")
+    for name, m, ci, co, route, dms, bms, oms, tms in sites:
+        print(f"{name:16s} [{m};{ci}->{co}]".ljust(38) + f"{route:7s} "
+              f"{dms:.4f}    {bms:.4f}    {oms:.4f}    "
+              f"{max(bms, oms) / dms:.3f}           " +
+              ("-" if tms is None else f"{tms:.4f}"))
     print(f"K5: every check passed over {sum(len(c[5]) for c in K5_CASES)} "
-          f"cases; max |err| {max_err:.3e}")
+          f"cases; max |err| {max_err:.3e}; the {len(sites)} resnet50 sites "
+          f"{sum(s[5] for s in sites):.4f} ms in all, bound "
+          f"{sum(max(s[6], s[7]) for s in sites):.4f} ms")
     return max_err, (rows[0][6], rows[0][7])
 
 
@@ -872,7 +998,7 @@ class Run:
                                    "fused_blocks": fused,
                                    "boundary_mask": fused}})
         model = engine.build_model(cfg, self.n_classes)  # weights: seed 0
-        self.model = model.cuda().to(memory_format=torch.channels_last)
+        self.model = model.to(memory_format=torch.channels_last)
         tx = engine.build_optimizer(NameSpace({"type": "adam", "lr": 1e-3}),
                                     steps_per_epoch=len(self.pipeline))
         self.state = engine.create_state(self.model, tx)
@@ -1098,7 +1224,7 @@ def unfused_twin(torch, fused_model, n_classes, ghost, dtype):
     model = engine.build_model(NameSpace({"model": {
         "variant": VARIANT, "bn_stats_rows": ghost}}), n_classes, dtype=dtype)
     model.load_state_dict(fused_model.state_dict())
-    return model.cuda().to(memory_format=torch.channels_last)
+    return model.to(memory_format=torch.channels_last)
 
 
 def train_fused(torch, fl, fbb, csv):
@@ -1219,7 +1345,7 @@ def fused_checks(torch, run, twin, ghost):
         f32 = engine.build_model(NameSpace({"model": {
             "variant": VARIANT, "bn_stats_rows": rows, "fused_blocks": True,
             "boundary_mask": True}}), N_CLASSES, dtype=torch.float32)
-        f32 = f32.cuda().to(memory_format=torch.channels_last)
+        f32 = f32.to(memory_format=torch.channels_last)
         f32.load_state_dict(model.state_dict())
         f32_twin = unfused_twin(torch, f32, N_CLASSES, rows, torch.float32)
         loss_a = grads_of(torch, f32, loss_fn, images[sl], labels[sl],
@@ -1295,6 +1421,7 @@ def main():
         builds = [pool.submit(lib) for lib in (fbb._library, ss._library)]
         t0 = time.perf_counter()
         max_err, timing, library = kernel_checks(torch, fl)
+        k3_checks(torch, fl)
         grad_err, grad_timing = grad_kernel_checks(torch, fl)
         max_err.update(grad_err)
         timing.update(grad_timing)

@@ -18,236 +18,220 @@
 // What bounds it on the H100: the two products are 4*M*ci*co flops; the
 // bytes are g, z, mask, x, ds read and gp, dx written.  At the resnet50
 // sites of stage 1 (M = 802,816, ci*co = 64*256) it is memory bound, at
-// stage 4 (M = 12,544, ci*co = 512*2048) bound by the products.  The
-// design keeps the elementwise gate work out of the product loops: the
-// gate is evaluated once per element, and the product loops stream bf16
-// tiles with 16-byte loads through shared memory into `nvcuda::wmma`
-// (16x16x16, f32 accumulate).  wgmma/TMA pipelining is left to a later
-// change.
+// stage 4 (M = 12,544, ci*co = 512*2048) the products weigh as much as the
+// bytes.  The TPU kernel is one pass over row tiles with W, dW and the sums
+// resident in VMEM; on Hopper that sequential grid becomes a loop inside a
+// persistent block.  Three routes, chosen by the wrapper from the shape:
 //
-// The TPU kernel runs its grid in order and carries dW and the channel sums
-// in VMEM scratch from step to step.  Blocks here run in parallel in no
-// order, so the work is four stages on one stream, with no float atomics,
-// so two launches on the same inputs give the same bits:
-//   0. site_gate over (row tile, channel tile): gp (written on request),
-//      dz into a [M, co] scratch, and one sums_o partial per row tile;
-//   1. site_rows over (M-tile, ci-tile): dxa = dz @ W^T, then dx and one
-//      sums_i partial per M-tile;
-//   2. site_dw over (ci-tile, co-tile, M-split): xa recomputed from x, one
-//      f32 dW partial per split (the splits depend on the shape alone);
-//   3. reduce_partials adds the partials of each output in a fixed order.
-// Every site shape runs here, ragged M and channel counts included (edges
-// are masked and padded with zeros in shared memory; 16-byte loads only
-// where both channel counts are multiples of 8): the VMEM-budget fallback
-// of `_pick_tm` has no counterpart.
+// fused (bf16; ci, co and the form in a fixed set, W beside two row tiles
+//   in shared memory -- the stage-1 sites and the stage-2 block-1 head, all
+//   at M = 802,816): `site_fused`, one block per SM, each walking its own
+//   contiguous range of 64-row tiles (a function of M and the block count
+//   alone).  W is loaded once by TMA.  Each tile's g, z, x, ds arrive by
+//   TMA (128-byte swizzle, the layout wgmma reads) and the int8 mask by a
+//   bulk copy, into a ring of two slots, one tile ahead of the math.  Per
+//   tile: the gate in registers, dz written over g in place (the same
+//   swizzled address, so it is at once the K-major A of dxa and the
+//   MN-major B of dW), gp over z, xa into its own buffer; dxa = dz W^T on
+//   wgmma (two warpgroups split ci); dW += xa^T dz on wgmma into registers
+//   that live across the whole range; the epilogue writes dx over x and
+//   TMA stores dx and gp.  dz never reaches device memory and every input
+//   is read once.  Each block writes one partial of dW and the sums; one
+//   ordered reduction adds them.
+// tiled (bf16, every other site whose channel counts are multiples of 64):
+//   `site_gate` writes dz once to device memory; `site_rows_tc` (dxa on
+//   wgmma over a 3-stage TMA ring, 128 x 128 tiles, then dx -- and xa
+//   with in_act -- with 16-byte loads and stores) and `site_dw_tc` (dW on
+//   wgmma, 128 x 128 tiles per M-split) read it back, two blocks to an
+//   SM; the partials are added in order.
+// generic (f32, and bf16 channel counts that are not multiples of 64):
+//   the SIMT stages `site_gate`, `site_rows`, `site_dw` with wmma (bf16) or
+//   FMA (f32) block products, every shape, ragged edges masked.
 //
-// Rounding follows `_bwd_kernel`: the gate and xa are computed as
-// round(round(v*mul) + add) in the activation dtype (explicit _rn
+// No float atomics on any route: two launches on the same inputs give the
+// same bits.  Rounding follows `_bwd_kernel`: the gate and xa are computed
+// as round(round(v*mul) + add) in the activation dtype (explicit _rn
 // intrinsics, so no FMA contraction changes a gate), dz and xa are rounded
 // before the products, dxa, the sums and dW stay f32, dx is rounded once.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC; plain C entry points, bound with ctypes.
+// cuTensorMapEncodeTiled (libcuda) is looked up at run time
+// (cudaGetDriverEntryPoint), so the library needs no -lcuda.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include <cuda.h>
 
-using namespace nvcuda;
+#include "site_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int PAD = 8;
 // site_gate: GR rows x GC channels per block (32 lanes x 8 channels).
 constexpr int GR = 64, GC = 256;
-// site_rows: output tile RM x RN of dxa, co consumed in chunks of RK.
-constexpr int RM = 128, RN = 64, LDC = RN + 4;
-// site_dw: output tile WI x WK of dW, M consumed in chunks of WM rows.
-constexpr int WI = 64, WK = 128, LDX = WI + PAD, LDD = WK + PAD, LDW = WK + 4;
-// reduce_partials: 32 outputs x 8 lanes per block; partials per program.
-constexpr int RED_X = 32, RED_Y = 8, RED_CHUNK = 256;
 
-// Depth of a product step: two 16-deep wmma steps per tile row of 64 bytes
-// in f32, four in bf16 (shared memory stays within the 48 KB of a static
-// allocation).
-template <typename T> struct Depth { static constexpr int K = 64; };
-template <> struct Depth<float> { static constexpr int K = 32; };
+// ---------------------------------------------------------------------------
+// Hopper primitives: shared-memory addresses, mbarriers, TMA, wgmma.
+// ---------------------------------------------------------------------------
 
-template <typename T> struct Num;
-template <> struct Num<float> {
-  static __device__ __forceinline__ float f(float v) { return v; }
-  static __device__ __forceinline__ float r(float v) { return v; }
-  static __device__ __forceinline__ float from(float v) { return v; }
-};
-template <> struct Num<__nv_bfloat16> {
-  static __device__ __forceinline__ float f(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ float r(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from(float v) {
-    return __float2bfloat16_rn(v);
-  }
-};
-
-// round(round(v * mul) + add) in T, with mul and add already rounded to T.
-template <typename T>
-__device__ __forceinline__ float affine_t(float v, float mul_t, float add_t) {
-  return Num<T>::r(__fadd_rn(Num<T>::r(__fmul_rn(v, mul_t)), add_t));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__host__ __device__ __forceinline__ long long cdiv(long long a, long long b) {
-  return (a + b - 1) / b;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
 }
 
-// Eight consecutive elements, 16-byte aligned at both ends.
-template <typename T>
-__device__ __forceinline__ void copy8(T* dst, const T* src) {
-#pragma unroll
-  for (int i = 0; i < (int)sizeof(T) / 2; ++i)
-    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+// Arrive once and expect `bytes` of asynchronous copies on `bar`.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
 }
-template <typename T>
-__device__ __forceinline__ void zero8(T* dst) {
-#pragma unroll
-  for (int i = 0; i < (int)sizeof(T) / 2; ++i)
-    reinterpret_cast<uint4*>(dst)[i] = make_uint4(0, 0, 0, 0);
+
+// A barrier that does not complete within 2^26 polls (seconds) traps, so a
+// wrong byte count fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// Generic-proxy writes to shared memory become visible to the async proxy
+// (wgmma operands, TMA stores, later TMA loads into the same bytes).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// One box of a 2D tensor map (coordinates: column, row) into `dst`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int col, int row, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, int col,
+                                          int row, const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], "
+      "[%3];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(col), "r"(row), "r"(smem_u32(src))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes into `dst`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// The committed stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// The committed stores are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Every group but the last committed one is complete.
+__device__ __forceinline__ void wgmma_wait_prev() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+
+// Operand descriptor of a tile in the 128-byte-swizzled layout TMA writes:
+// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO).  K-major: the
+// start advances 32 bytes per 16-deep step inside a row.  MN-major (one
+// 64-wide atom per operand here): the start advances 2048 bytes (16 rows)
+// per step.  Atoms start on 1024-byte boundaries.
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// Byte offset of 8-element granule `gran` (0..7) of row r inside a
+// 128-byte-swizzled atom.
+__device__ __forceinline__ int swz(int r, int gran) {
+  return r * 128 + ((gran ^ (r & 7)) << 4);
+}
+
+// Byte offset of element (r, c) of a [rows][C] tile stored as C/64 atoms of
+// [rows][64] (atom stride `atom` bytes).
+__device__ __forceinline__ int tile_off(int r, int c, int atom) {
+  return (c >> 6) * atom + swz(r, (c & 63) >> 3) + (c & 7) * 2;
+}
+
+// D[64 x N] += A * B, f32 accumulate, bf16 operands from shared memory.
+// TA / TB: 0 K-major, 1 MN-major.  Fragment of thread t of the warpgroup:
+// d[j*4 + h*2 + e] is row (t/32)*16 + (t%32)/4 + 8h, column j*8 + (t%4)*2 + e.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 // ---------------------------------------------------------------------------
-// Block products.  Rows: C[RM][RN] += A[RM][K] (row-major, ld K+PAD) times
-// B[K][RN] stored as [RN][K] (column-major, ld K+PAD).  Weights: C[WI][WK]
-// += A[WI][K] stored as [K][WI] (column-major, ld LDX) times B[K][WK]
-// (row-major, ld LDD).  bf16: 8 warps of 32x32 wmma tiles; f32: plain FMA,
-// 32 outputs per thread.
+// Route "generic" (and the tiled route's gate): the SIMT stages.
 // ---------------------------------------------------------------------------
-
-template <typename T> struct RowsMma;
-template <typename T> struct DwMma;
-
-using frag_acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using bf16 = __nv_bfloat16;
-
-template <> struct RowsMma<bf16> {
-  static constexpr int K = Depth<bf16>::K, LD = K + PAD;
-  frag_acc c[2][2];
-  __device__ void zero() {
-    for (int i = 0; i < 2; ++i)
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
-  }
-  __device__ void step(const bf16* sA, const bf16* sB) {
-    const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
-#pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], sA + (wm * 32 + i * 16) * LD + kk, LD);
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], sB + (wn * 32 + j * 16) * LD + kk, LD);
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-  }
-  __device__ void store(float* sC) {
-    const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
-    for (int i = 0; i < 2; ++i)
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(sC + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                                c[i][j], LDC, wmma::mem_row_major);
-  }
-};
-
-template <> struct RowsMma<float> {
-  static constexpr int K = Depth<float>::K, LD = K + PAD;
-  float c[8][4];
-  __device__ void zero() {
-    for (int i = 0; i < 8; ++i)
-      for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
-  }
-  __device__ void step(const float* sA, const float* sB) {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-    for (int kk = 0; kk < K; ++kk) {
-      float a[8], b[4];
-      for (int i = 0; i < 8; ++i) a[i] = sA[(ty * 8 + i) * LD + kk];
-      for (int j = 0; j < 4; ++j) b[j] = sB[(tx * 4 + j) * LD + kk];
-      for (int i = 0; i < 8; ++i)
-        for (int j = 0; j < 4; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
-    }
-  }
-  __device__ void store(float* sC) {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-    for (int i = 0; i < 8; ++i)
-      for (int j = 0; j < 4; ++j) sC[(ty * 8 + i) * LDC + tx * 4 + j] = c[i][j];
-  }
-};
-
-template <> struct DwMma<bf16> {
-  static constexpr int K = Depth<bf16>::K;
-  frag_acc c[2][2];
-  __device__ void zero() {
-    for (int i = 0; i < 2; ++i)
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
-  }
-  __device__ void step(const bf16* sX, const bf16* sD) {
-    const int warp = threadIdx.x / 32, wi = warp / 4, wk = warp % 4;
-#pragma unroll
-    for (int mm = 0; mm < K; mm += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], sX + mm * LDX + wi * 32 + i * 16, LDX);
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], sD + mm * LDD + wk * 32 + j * 16, LDD);
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-  }
-  __device__ void store(float* sW) {
-    const int warp = threadIdx.x / 32, wi = warp / 4, wk = warp % 4;
-    for (int i = 0; i < 2; ++i)
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(sW + (wi * 32 + i * 16) * LDW + wk * 32 + j * 16,
-                                c[i][j], LDW, wmma::mem_row_major);
-  }
-};
-
-template <> struct DwMma<float> {
-  static constexpr int K = Depth<float>::K;
-  float c[8][4];
-  __device__ void zero() {
-    for (int i = 0; i < 8; ++i)
-      for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
-  }
-  __device__ void step(const float* sX, const float* sD) {
-    const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;
-    for (int mm = 0; mm < K; ++mm) {
-      float a[8], b[4];
-      for (int i = 0; i < 8; ++i) a[i] = sX[mm * LDX + ty * 8 + i];
-      for (int j = 0; j < 4; ++j) b[j] = sD[mm * LDD + tx * 4 + j];
-      for (int i = 0; i < 8; ++i)
-        for (int j = 0; j < 4; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
-    }
-  }
-  __device__ void store(float* sW) {
-    const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;
-    for (int i = 0; i < 8; ++i)
-      for (int j = 0; j < 4; ++j) sW[(ty * 8 + i) * LDW + tx * 4 + j] = c[i][j];
-  }
-};
-
-template <int A, int B> struct Max { static constexpr int value = A > B ? A : B; };
-
-// Sum of red[q * width + lane] over q in order, for lane < width.
-__device__ __forceinline__ float ordered_sum(const float* red, int groups,
-                                             int width, int lane) {
-  float v = red[lane];
-  for (int q = 1; q < groups; ++q) v += red[q * width + lane];
-  return v;
-}
 
 // ---------------------------------------------------------------------------
 // Stage 0: gp, dz and the sums_o partials.  grid (ceil(M/GR), ceil(co/GC));
@@ -516,131 +500,839 @@ site_dw(const T* __restrict__ dz, const T* __restrict__ x,
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// Stage 3: out[b][j] = sum over t in program b's chunk of part[t][j], in a
-// fixed order (lane-strided, then the lanes in order).  grid (ceil(N/RED_X),
-// programs), block (RED_X, RED_Y).
+// Route "fused": one persistent block per SM over a contiguous range of
+// 64-row tiles; see the header.  CI, CO and ACT (in_act) are compile-time;
+// mask, ds and gp are flags.
 // ---------------------------------------------------------------------------
-__global__ void reduce_partials(const float* __restrict__ part,
-                                float* __restrict__ out, int S, long long N,
-                                int chunk) {
-  __shared__ float s[RED_Y][RED_X + 1];
-  const long long j = (long long)blockIdx.x * RED_X + threadIdx.x;
-  const int t0 = blockIdx.y * chunk;
-  const int t1 = t0 + chunk < S ? t0 + chunk : S;
-  float acc = 0.f;
-  if (j < N)
-    for (int t = t0 + threadIdx.y; t < t1; t += RED_Y)
-      acc += part[(long long)t * N + j];
-  s[threadIdx.y][threadIdx.x] = acc;
+
+constexpr int TM = 64;           // rows of a tile: one wgmma M
+constexpr int FT = 256;          // two warpgroups
+constexpr int ATOM = TM * 128;   // bytes of one swizzled [64][64] bf16 atom
+constexpr int SMEM_LIMIT = 232448;
+
+struct FusedArgs {
+  const int8_t* mask;
+  const float *mul_o, *add_o, *mul_i, *add_i;
+  float* part;        // [blocks][ci*co + 2*co + 2*ci]
+  long long M;
+  int tiles;          // ceil(M / TM)
+  int has_mask, has_ds, emit_gp;
+};
+
+// Byte offsets of site_fused's shared memory from a 1024-aligned base: W,
+// then two slots (g, z, x, ds?, mask?), then xa when in_act.
+struct FusedLayout {
+  int g, z, x, ds, mask, slot, s0, xa, total;
+  __host__ __device__ FusedLayout(int ci, int co, bool act, int has_mask,
+                                  int has_ds) {
+    g = 0;
+    z = TM * 2 * co;
+    x = z + TM * 2 * co;
+    ds = x + TM * 2 * ci;
+    mask = ds + (has_ds ? TM * 2 * ci : 0);
+    slot = mask + (has_mask ? TM * co : 0);
+    s0 = ci * co * 2;
+    xa = s0 + 2 * slot;
+    total = xa + (act ? TM * 2 * ci : 0) + 1024;
+  }
+};
+
+template <int CI, int CO, bool ACT>
+__global__ void __launch_bounds__(FT, 1)
+site_fused(const __grid_constant__ CUtensorMap mg,
+           const __grid_constant__ CUtensorMap mz,
+           const __grid_constant__ CUtensorMap mx,
+           const __grid_constant__ CUtensorMap mds,
+           const __grid_constant__ CUtensorMap mw,
+           const __grid_constant__ CUtensorMap mdx,
+           const __grid_constant__ CUtensorMap mgp, const FusedArgs a) {
+  constexpr int NCO = CO / 64, NCI = CI / 64;
+  // dW in units of (64-row block of ci, 64-wide atom of co): half of them
+  // per warpgroup, or with one unit, half of each tile's depth each.
+  constexpr int UNITS = NCI * NCO;
+  constexpr bool KSPLIT = UNITS == 1;
+  constexpr int UW = KSPLIT ? 1 : UNITS / 2;
+  // dxa: each warpgroup takes CI/2 columns, in passes of DN.
+  constexpr int HALF = CI / 2, DN = HALF < 64 ? HALF : 64;
+  constexpr int PASSES = HALF / DN;
+  // The gate: thread owns channel granule gc of rows r0 + q*RS; the xa
+  // transform likewise over ci.
+  constexpr int GPR = CO / 8, RS = FT / GPR, NQ = TM / RS;
+  constexpr int GPI = CI / 8, RSI = FT / GPI, NQI = TM / RSI;
+  constexpr int NT = CI * CO + 2 * CO + 2 * CI;
+  static_assert(FT % GPR == 0 && FT % GPI == 0, "channel granules");
+  static_assert(KSPLIT || UNITS % 2 == 0, "dW units split in halves");
+  static_assert(!ACT || PASSES == 1, "in_act takes one dxa pass");
+
+  extern __shared__ unsigned char raw[];
+  __shared__ __align__(8) uint64_t full[2];
+  __shared__ __align__(8) uint64_t wbar;
+  unsigned char* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  const FusedLayout L(CI, CO, ACT, a.has_mask, a.has_ds);
+  unsigned char* const sw = base;
+  unsigned char* const sxa = base + L.xa;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int t_begin = (int)((long long)blockIdx.x * a.tiles / gridDim.x);
+  const int t_end = (int)((long long)(blockIdx.x + 1) * a.tiles / gridDim.x);
+  const uint32_t tile_bytes =
+      (2u * NCO + NCI * (a.has_ds ? 2u : 1u)) * (uint32_t)ATOM;
+  auto slot = [&](int s) { return base + L.s0 + s * L.slot; };
+  auto issue = [&](int s, int tile) {
+    unsigned char* p = slot(s);
+    const long long row0 = (long long)tile * TM;
+    const long long left = a.M - row0;
+    const uint32_t rows = (uint32_t)(left < TM ? left : TM);
+    mbar_expect(&full[s], tile_bytes + (a.has_mask ? rows * CO : 0u));
+    for (int c = 0; c < NCO; ++c) {
+      tma_load(p + L.g + c * ATOM, &mg, c * 64, tile * TM, &full[s]);
+      tma_load(p + L.z + c * ATOM, &mz, c * 64, tile * TM, &full[s]);
+    }
+    for (int c = 0; c < NCI; ++c) {
+      tma_load(p + L.x + c * ATOM, &mx, c * 64, tile * TM, &full[s]);
+      if (a.has_ds)
+        tma_load(p + L.ds + c * ATOM, &mds, c * 64, tile * TM, &full[s]);
+    }
+    if (a.has_mask)
+      bulk_load(p + L.mask, a.mask + row0 * CO, rows * CO, &full[s]);
+  };
+
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_init(&wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
-  if (threadIdx.y == 0 && j < N) {
-    float v = s[0][threadIdx.x];
-    for (int y = 1; y < RED_Y; ++y) v += s[y][threadIdx.x];
-    out[(long long)blockIdx.y * N + j] = v;
+  if (tid == 0) {
+    mbar_expect(&wbar, CI * CO * 2);
+    for (int c = 0; c < NCO; ++c)
+      tma_load(sw + c * CI * 128, &mw, c * 64, 0, &wbar);
+    for (int s = 0; s < 2 && t_begin + s < t_end; ++s) issue(s, t_begin + s);
+  }
+
+  // Per-thread channels: the gate's, the xa transform's, the epilogue's.
+  const int gc = tid % GPR, r0 = tid / GPR, c0 = gc * 8;
+  float mo[8], mo_t[8], ao_t[8], s_gz[8], s_g[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    mo[e] = a.mul_o[c0 + e];
+    mo_t[e] = Num<bf16>::r(mo[e]);
+    ao_t[e] = Num<bf16>::r(a.add_o[c0 + e]);
+    s_gz[e] = s_g[e] = 0.f;
+  }
+  const int gi = tid % GPI, ri0 = tid / GPI;
+  constexpr int NC = DN / 4;     // epilogue columns of a thread (one pass)
+  float xm_t[8], xa_t[8], mi[NC], mi_t[NC], ai_t[NC], s_gx[NC], s_gi[NC];
+  if constexpr (ACT) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      xm_t[e] = Num<bf16>::r(a.mul_i[gi * 8 + e]);
+      xa_t[e] = Num<bf16>::r(a.add_i[gi * 8 + e]);
+    }
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = wg * HALF + (k / 2) * 8 + (lane & 3) * 2 + (k & 1);
+      mi[k] = a.mul_i[c];
+      mi_t[k] = Num<bf16>::r(mi[k]);
+      ai_t[k] = Num<bf16>::r(a.add_i[c]);
+      s_gx[k] = s_gi[k] = 0.f;
+    }
+  }
+  float accw[UW][32];
+#pragma unroll
+  for (int u = 0; u < UW; ++u)
+#pragma unroll
+    for (int k = 0; k < 32; ++k) accw[u][k] = 0.f;
+  float accx[DN / 2];
+
+  mbar_wait(&wbar, 0);
+  for (int tile = t_begin, i = 0; tile < t_end; ++tile, ++i) {
+    const int s = i & 1;
+    unsigned char* const p = slot(s);
+    mbar_wait(&full[s], (i >> 1) & 1);
+
+    // 1. The gate, in registers: dz over g, gp over z (same addresses).
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int r = r0 + q * RS;
+      const int off = (gc >> 3) * ATOM + swz(r, gc & 7);
+      __align__(16) bf16 gv[8], zv[8], dzv[8], gpv[8];
+      __align__(8) int8_t mv[8];
+      *reinterpret_cast<uint4*>(gv) = *reinterpret_cast<const uint4*>(p + L.g + off);
+      *reinterpret_cast<uint4*>(zv) = *reinterpret_cast<const uint4*>(p + L.z + off);
+      if (a.has_mask)
+        *reinterpret_cast<uint2*>(mv) =
+            *reinterpret_cast<const uint2*>(p + L.mask + r * CO + c0);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float gf = Num<bf16>::f(gv[e]), zf = Num<bf16>::f(zv[e]);
+        const float gp = a.has_mask
+                             ? Num<bf16>::r(gf * (float)mv[e])
+                             : (affine_t<bf16>(zf, mo_t[e], ao_t[e]) > 0.f ? gf
+                                                                           : 0.f);
+        s_gz[e] += gp * zf;
+        s_g[e] += gp;
+        gpv[e] = Num<bf16>::from(gp);
+        dzv[e] = Num<bf16>::from(__fmul_rn(gp, mo[e]));
+      }
+      *reinterpret_cast<uint4*>(p + L.g + off) = *reinterpret_cast<uint4*>(dzv);
+      if (a.emit_gp)
+        *reinterpret_cast<uint4*>(p + L.z + off) = *reinterpret_cast<uint4*>(gpv);
+    }
+    // 2. xa = relu(x*mul_i + add_i) into its own buffer, same layout.
+    if constexpr (ACT) {
+#pragma unroll
+      for (int q = 0; q < NQI; ++q) {
+        const int r = ri0 + q * RSI;
+        const int off = (gi >> 3) * ATOM + swz(r, gi & 7);
+        __align__(16) bf16 xv[8];
+        *reinterpret_cast<uint4*>(xv) = *reinterpret_cast<const uint4*>(p + L.x + off);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float v = affine_t<bf16>(Num<bf16>::f(xv[e]), xm_t[e], xa_t[e]);
+          xv[e] = Num<bf16>::from(v > 0.f ? v : 0.f);
+        }
+        *reinterpret_cast<uint4*>(sxa + off) = *reinterpret_cast<uint4*>(xv);
+      }
+    }
+    fence_async_smem();
+    __syncthreads();
+
+    // 3. The products: dW += xa^T dz (both MN-major), dxa = dz W^T (both
+    //    K-major), one commit.
+    const unsigned char* const A = ACT ? sxa : p + L.x;
+#pragma unroll
+    for (int k = 0; k < DN / 2; ++k) accx[k] = 0.f;
+    wgmma_fence();
+    if constexpr (KSPLIT) {
+#pragma unroll
+      for (int k = 2 * wg; k < 2 * wg + 2; ++k)
+        wgmma_n64<1, 1>(accw[0], desc(A + k * 2048), desc(p + L.g + k * 2048));
+    } else {
+#pragma unroll
+      for (int u = 0; u < UW; ++u) {
+        const int unit = wg * UW + u, mb = unit / NCO, nb = unit % NCO;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          wgmma_n64<1, 1>(accw[u], desc(A + mb * ATOM + k * 2048),
+                          desc(p + L.g + nb * ATOM + k * 2048));
+      }
+    }
+#pragma unroll
+    for (int pass = 0; pass < PASSES; ++pass) {
+      const int n0 = wg * HALF + pass * DN;
+      if (pass > 0) {
+#pragma unroll
+        for (int k = 0; k < DN / 2; ++k) accx[k] = 0.f;
+        wgmma_fence();
+      }
+#pragma unroll
+      for (int k = 0; k < CO / 16; ++k) {
+        const uint64_t da = desc(p + L.g + (k / 4) * ATOM + (k % 4) * 32);
+        const uint64_t db = desc(sw + (k / 4) * CI * 128 + n0 * 128 + (k % 4) * 32);
+        if constexpr (DN == 64) wgmma_n64<0, 0>(accx, da, db);
+        else wgmma_n32<0, 0>(accx, da, db);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      // Every warpgroup's dW has read x before dx overwrites it.
+      if (pass == 0) __syncthreads();
+
+      // 4. Epilogue: dx over x (the fragment's own elements), the sums.
+#pragma unroll
+      for (int j = 0; j < DN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = warp * 16 + (lane >> 2) + h * 8;
+          const int c = n0 + j * 8 + (lane & 3) * 2;
+          const int off = tile_off(r, c, ATOM);
+          float d[2] = {accx[j * 4 + h * 2], accx[j * 4 + h * 2 + 1]};
+          if (a.has_ds) {
+            const __nv_bfloat162 dv =
+                *reinterpret_cast<const __nv_bfloat162*>(p + L.ds + off);
+            d[0] = __fadd_rn(d[0], __low2float(dv));
+            d[1] = __fadd_rn(d[1], __high2float(dv));
+          }
+          __nv_bfloat162 o;
+          if constexpr (ACT) {
+            const __nv_bfloat162 xv =
+                *reinterpret_cast<const __nv_bfloat162*>(p + L.x + off);
+            const float xf[2] = {__low2float(xv), __high2float(xv)};
+            float out[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int k = j * 2 + e;
+              const float gin =
+                  affine_t<bf16>(xf[e], mi_t[k], ai_t[k]) > 0.f ? d[e] : 0.f;
+              out[e] = __fmul_rn(gin, mi[k]);
+              s_gx[k] += gin * xf[e];
+              s_gi[k] += gin;
+            }
+            o = __floats2bfloat162_rn(out[0], out[1]);
+          } else {
+            o = __floats2bfloat162_rn(d[0], d[1]);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(p + L.x + off) = o;
+        }
+      }
+    }
+    fence_async_smem();
+    __syncthreads();
+    if (tid == 0) {
+      for (int c = 0; c < NCI; ++c)
+        tma_store(&mdx, c * 64, tile * TM, p + L.x + c * ATOM);
+      if (a.emit_gp)
+        for (int c = 0; c < NCO; ++c)
+          tma_store(&mgp, c * 64, tile * TM, p + L.z + c * ATOM);
+      bulk_commit();
+      bulk_wait_read();
+      if (tile + 2 < t_end) issue(s, tile + 2);
+    }
+  }
+  if (tid == 0) bulk_wait();
+  __syncthreads();
+
+  // This block's partials, each added across threads in a fixed order.
+  float* red = reinterpret_cast<float*>(slot(0));
+  float* part = a.part + (long long)blockIdx.x * NT;
+  if constexpr (KSPLIT) {
+    if (wg == 1)
+#pragma unroll
+      for (int k = 0; k < 32; ++k) red[k * 128 + tid - 128] = accw[0][k];
+    __syncthreads();
+    if (wg == 0)
+#pragma unroll
+      for (int k = 0; k < 32; ++k) accw[0][k] += red[k * 128 + tid];
+    __syncthreads();
+  }
+  if (!KSPLIT || wg == 0) {
+#pragma unroll
+    for (int u = 0; u < UW; ++u) {
+      const int unit = KSPLIT ? 0 : wg * UW + u, mb = unit / NCO, nb = unit % NCO;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = mb * 64 + warp * 16 + (lane >> 2) + h * 8;
+          const int col = nb * 64 + j * 8 + (lane & 3) * 2;
+          *reinterpret_cast<float2*>(part + row * CO + col) =
+              make_float2(accw[u][j * 4 + h * 2], accw[u][j * 4 + h * 2 + 1]);
+        }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    red[(r0 * 2) * CO + c0 + e] = s_gz[e];
+    red[(r0 * 2 + 1) * CO + c0 + e] = s_g[e];
+  }
+  __syncthreads();
+  for (int c = tid; c < CO; c += FT) {
+    float v0 = 0.f, v1 = 0.f;
+    for (int q = 0; q < RS; ++q) {
+      v0 += red[(q * 2) * CO + c];
+      v1 += red[(q * 2 + 1) * CO + c];
+    }
+    part[CI * CO + c] = v0;
+    part[CI * CO + CO + c] = v1;
+  }
+  __syncthreads();
+  if constexpr (ACT) {
+    const int owner = warp * 8 + (lane >> 2);   // 32 threads share a column
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = wg * HALF + (k / 2) * 8 + (lane & 3) * 2 + (k & 1);
+      red[(owner * 2) * CI + c] = s_gx[k];
+      red[(owner * 2 + 1) * CI + c] = s_gi[k];
+    }
+    __syncthreads();
+    for (int c = tid; c < CI; c += FT) {
+      float v0 = 0.f, v1 = 0.f;
+      for (int q = 0; q < 32; ++q) {
+        v0 += red[(q * 2) * CI + c];
+        v1 += red[(q * 2 + 1) * CI + c];
+      }
+      part[CI * CO + 2 * CO + c] = v0;
+      part[CI * CO + 2 * CO + CI + c] = v1;
+    }
+  } else {
+    for (int c = tid; c < 2 * CI; c += FT) part[CI * CO + 2 * CO + c] = 0.f;
   }
 }
 
-long long scratch_floats(long long S, long long N) {
-  return S > RED_CHUNK ? cdiv(S, RED_CHUNK) * N : 0;
+// ---------------------------------------------------------------------------
+// Route "tiled": dxa and dW on wgmma over a TMA ring, dz from site_gate.
+// Two blocks share an SM (97 KB of shared memory each), so one block's
+// epilogue and barriers overlap the other's products.  In the main loop a
+// step's wgmma group stays in flight while the next step's tile is waited
+// for: step kc passes a block barrier (every warpgroup has retired group
+// kc-2, whose slot is then free), issues the TMA load of step kc+1 into
+// that slot, waits for step kc's tile, and commits its products, leaving
+// at most one group outstanding.
+// ---------------------------------------------------------------------------
+
+constexpr int TB = 128;          // output tile rows and columns
+constexpr int TSTAGES = 3;       // ring depth: in flight, current, loading
+constexpr int TSTAGE = 4 * ATOM; // bytes of one ring stage (32 KB)
+constexpr int LDE = TB + 4;      // f32 epilogue tile stride
+constexpr int TILED_SMEM = TSTAGES * TSTAGE + 1024;
+static_assert(TB * LDE * 4 + 2 * (FT / 16) * TB * 4 <= TSTAGES * TSTAGE,
+              "site_rows_tc's epilogue fits in the ring");
+
+// dxa = dz W^T for a 128-row x 128-column tile (co in 64-deep steps), then
+// dx and the input-side sums with 16-byte loads and stores; with in_act it
+// also writes xa = relu(x*mul_i + add_i), which site_dw_tc then reads in
+// place of x (made once, not once per co tile).  grid (ceil(M/128),
+// ceil(ci/128)); part_i [ceil(M/128)][2][ci].
+__global__ void __launch_bounds__(FT, 2)
+site_rows_tc(const __grid_constant__ CUtensorMap mdz,
+             const __grid_constant__ CUtensorMap mw, const bf16* __restrict__ x,
+             const bf16* __restrict__ ds, const float* __restrict__ mul_i,
+             const float* __restrict__ add_i, bf16* __restrict__ dx,
+             bf16* __restrict__ xa, float* __restrict__ part_i, long long M,
+             int ci, int co, int in_act) {
+  extern __shared__ unsigned char raw[];
+  __shared__ __align__(8) uint64_t full[TSTAGES];
+  unsigned char* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const long long m0 = (long long)blockIdx.x * TB;
+  const int n0 = blockIdx.y * TB, nk = co / 64;
+  auto issue = [&](int kc) {
+    const int s = kc % TSTAGES;
+    unsigned char* p = base + s * TSTAGE;
+    mbar_expect(&full[s], 2 * TB * 128);
+    tma_load(p, &mdz, kc * 64, (int)m0, &full[s]);
+    tma_load(p + TB * 128, &mw, kc * 64, n0, &full[s]);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < TSTAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    issue(0);
+  }
+
+  float acc[2][32];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int k = 0; k < 32; ++k) acc[n][k] = 0.f;
+  for (int kc = 0; kc < nk; ++kc) {
+    __syncthreads();   // group kc-2 retired in every warpgroup
+    if (tid == 0 && kc + 1 < nk) issue(kc + 1);
+    const int s = kc % TSTAGES;
+    mbar_wait(&full[s], (kc / TSTAGES) & 1);
+    const unsigned char* p = base + s * TSTAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = desc(p + wg * 64 * 128 + kk * 32);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        wgmma_n64<0, 0>(acc[n], da, desc(p + TB * 128 + n * 64 * 128 + kk * 32));
+    }
+    wgmma_commit();
+    wgmma_wait_prev();
+  }
+  wgmma_wait();
+  __syncthreads();   // every warpgroup's products have read the ring
+
+  float* stage = reinterpret_cast<float*>(base);
+  float* red = stage + TB * LDE;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wg * 64 + warp * 16 + (lane >> 2) + h * 8;
+        const int c = n * 64 + j * 8 + (lane & 3) * 2;
+        *reinterpret_cast<float2*>(stage + r * LDE + c) =
+            make_float2(acc[n][j * 4 + h * 2], acc[n][j * 4 + h * 2 + 1]);
+      }
+  __syncthreads();
+
+  const int gcol = tid % 16, rr = tid / 16, i = n0 + gcol * 8;
+  float mi[8], mi_t[8], ai_t[8], s_gx[8], s_gi[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const bool on = in_act && i < ci;
+    mi[e] = on ? mul_i[i + e] : 0.f;
+    mi_t[e] = Num<bf16>::r(mi[e]);
+    ai_t[e] = on ? Num<bf16>::r(add_i[i + e]) : 0.f;
+    s_gx[e] = s_gi[e] = 0.f;
+  }
+  if (i < ci) {
+    for (int q = 0; q < TB / 16; ++q) {
+      const int r = rr + q * 16;
+      const long long m = m0 + r;
+      if (m >= M) break;
+      const long long off = m * ci + i;
+      float d[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d[e] = stage[r * LDE + gcol * 8 + e];
+      __align__(16) bf16 v[8], o[8];
+      if (ds) {
+        copy8(v, ds + off);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d[e] = __fadd_rn(d[e], Num<bf16>::f(v[e]));
+      }
+      if (in_act) {
+        copy8(v, x + off);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float xf = Num<bf16>::f(v[e]);
+          const float t = affine_t<bf16>(xf, mi_t[e], ai_t[e]);
+          const float gin = t > 0.f ? d[e] : 0.f;
+          o[e] = Num<bf16>::from(__fmul_rn(gin, mi[e]));
+          v[e] = Num<bf16>::from(t > 0.f ? t : 0.f);
+          s_gx[e] += gin * xf;
+          s_gi[e] += gin;
+        }
+        copy8(xa + off, v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o[e] = Num<bf16>::from(d[e]);
+      }
+      copy8(dx + off, o);
+    }
+  }
+  if (in_act) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      red[(rr * 2) * TB + gcol * 8 + e] = s_gx[e];
+      red[(rr * 2 + 1) * TB + gcol * 8 + e] = s_gi[e];
+    }
+    __syncthreads();
+    if (tid < TB && n0 + tid < ci) {
+      float v0 = 0.f, v1 = 0.f;
+      for (int q = 0; q < FT / 16; ++q) {
+        v0 += red[(q * 2) * TB + tid];
+        v1 += red[(q * 2 + 1) * TB + tid];
+      }
+      float* pi = part_i + (long long)blockIdx.x * 2 * ci;
+      pi[n0 + tid] = v0;
+      pi[ci + n0 + tid] = v1;
+    }
+  }
 }
 
-// sum over S partials [S][N] -> out [N]; two passes through scratch when S
-// exceeds one program's chunk.
-void reduce_all(const float* part, float* out, long long S, long long N,
-                float* scratch, cudaStream_t stream) {
-  const dim3 block(RED_X, RED_Y);
-  const unsigned gx = (unsigned)cdiv(N, RED_X);
-  if (S <= RED_CHUNK) {
-    reduce_partials<<<dim3(gx, 1), block, 0, stream>>>(part, out, (int)S, N,
-                                                       (int)S);
-    return;
+// dW partial of one M-split for a 128 x 128 tile of (ci, co): xa^T dz over
+// 64-row steps (xa: x, or the activation site_rows_tc wrote).  grid
+// (ceil(ci/128), ceil(co/128), splits); split s covers rows [s*rows,
+// min(M, (s+1)*rows)), rows a multiple of 64; part_w [splits][ci][co].
+__global__ void __launch_bounds__(FT, 2)
+site_dw_tc(const __grid_constant__ CUtensorMap mxa,
+           const __grid_constant__ CUtensorMap mdz, float* __restrict__ part_w,
+           long long M, int ci, int co, long long rows) {
+  extern __shared__ unsigned char raw[];
+  __shared__ __align__(8) uint64_t full[TSTAGES];
+  unsigned char* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int i0 = blockIdx.x * TB, k0 = blockIdx.y * TB;
+  const long long mbeg = (long long)blockIdx.z * rows;
+  const long long mend = mbeg + rows < M ? mbeg + rows : M;
+  const int nk = (int)cdiv(mend - mbeg, 64);
+  auto issue = [&](int kc) {
+    const int s = kc % TSTAGES;
+    unsigned char* p = base + s * TSTAGE;
+    const int row = (int)(mbeg + (long long)kc * 64);
+    mbar_expect(&full[s], TSTAGE);
+    tma_load(p, &mxa, i0, row, &full[s]);
+    tma_load(p + ATOM, &mxa, i0 + 64, row, &full[s]);
+    tma_load(p + 2 * ATOM, &mdz, k0, row, &full[s]);
+    tma_load(p + 3 * ATOM, &mdz, k0 + 64, row, &full[s]);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < TSTAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    issue(0);
   }
-  const long long P = cdiv(S, RED_CHUNK);
-  reduce_partials<<<dim3(gx, (unsigned)P), block, 0, stream>>>(
-      part, scratch, (int)S, N, RED_CHUNK);
-  reduce_all(scratch, out, P, N, nullptr, stream);
+
+  float acc[2][32];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int k = 0; k < 32; ++k) acc[n][k] = 0.f;
+  for (int kc = 0; kc < nk; ++kc) {
+    __syncthreads();   // group kc-2 retired in every warpgroup
+    if (tid == 0 && kc + 1 < nk) issue(kc + 1);
+    const int s = kc % TSTAGES;
+    mbar_wait(&full[s], (kc / TSTAGES) & 1);
+    const unsigned char* p = base + s * TSTAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = desc(p + wg * ATOM + kk * 2048);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        wgmma_n64<1, 1>(acc[n], da, desc(p + (2 + n) * ATOM + kk * 2048));
+    }
+    wgmma_commit();
+    wgmma_wait_prev();
+  }
+  wgmma_wait();
+  float* pw = part_w + (long long)blockIdx.z * ci * co;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = i0 + wg * 64 + warp * 16 + (lane >> 2) + h * 8;
+        const int c = k0 + n * 64 + j * 8 + (lane & 3) * 2;
+        if (i < ci && c < co)
+          *reinterpret_cast<float2*>(pw + (long long)i * co + c) =
+              make_float2(acc[n][j * 4 + h * 2], acc[n][j * 4 + h * 2 + 1]);
+      }
+}
+
+
+// ---------------------------------------------------------------------------
+// Host side.
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 [rows, cols] row-major tensor in boxes of 64 columns x box_rows
+// rows, 128-byte swizzle; elements outside the tensor read as zero and are
+// not written.
+bool make_map(CUtensorMap* map, const void* ptr, long long rows, int cols,
+              int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Site {
+  const void *g, *z, *mask, *x, *ds, *w;
+  const float *mul_o, *add_o, *mul_i, *add_i;
+  void *dx, *gp, *dz;
+  float *out, *work;   // out: dw [ci*co] | sums_o [2][co] | sums_i [2][ci]
+  long long M;
+  int ci, co, in_act, parts, vec;
+  cudaStream_t stream;
+};
+
+long long partials(long long M, int ci, int co, int route, int parts) {
+  return route == 2 ? (long long)parts * (ci * (long long)co + 2 * co + 2 * ci)
+                    : (long long)parts * ci * co + cdiv(M, GR) * 2 * co +
+                          cdiv(M, route == 1 ? TB : RM) * 2 * ci;
+}
+
+long long workspace(long long M, int ci, int co, int route, int parts) {
+  if (route == 2) return partials(M, ci, co, route, parts);
+  long long s = scratch_floats(parts, (long long)ci * co);
+  const long long so = scratch_floats(cdiv(M, GR), 2LL * co);
+  const long long si = scratch_floats(cdiv(M, route == 1 ? TB : RM), 2LL * ci);
+  s = s > so ? s : so;
+  s = s > si ? s : si;
+  return partials(M, ci, co, route, parts) + s;
+}
+
+template <int CI, int CO, bool ACT>
+int launch_fused(const Site& S) {
+  const int has_mask = S.mask != nullptr, has_ds = S.ds != nullptr;
+  const int smem = FusedLayout(CI, CO, ACT, has_mask, has_ds).total;
+  if (smem > SMEM_LIMIT - 64) return (int)cudaErrorInvalidValue;
+  CUtensorMap mg, mz, mx, mds, mw, mdx, mgp;
+  bool ok = make_map(&mg, S.g, S.M, CO, TM) && make_map(&mz, S.z, S.M, CO, TM) &&
+            make_map(&mx, S.x, S.M, CI, TM) &&
+            make_map(&mds, has_ds ? S.ds : S.x, S.M, CI, TM) &&
+            make_map(&mw, S.w, CI, CO, CI) && make_map(&mdx, S.dx, S.M, CI, TM) &&
+            make_map(&mgp, S.gp ? S.gp : S.z, S.M, CO, TM);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  FusedArgs a;
+  a.mask = static_cast<const int8_t*>(S.mask);
+  a.mul_o = S.mul_o;
+  a.add_o = S.add_o;
+  a.mul_i = S.mul_i;
+  a.add_i = S.add_i;
+  a.part = S.work;
+  a.M = S.M;
+  a.tiles = (int)cdiv(S.M, TM);
+  a.has_mask = has_mask;
+  a.has_ds = has_ds;
+  a.emit_gp = S.gp != nullptr;
+  auto kernel = site_fused<CI, CO, ACT>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kernel<<<S.parts, FT, smem, S.stream>>>(mg, mz, mx, mds, mw, mdx, mgp, a);
+  reduce_all(S.work, S.out, S.parts, (long long)CI * CO + 2 * CO + 2 * CI,
+             nullptr, S.stream);
+  return (int)cudaGetLastError();
+}
+
+// The (ci, co, in_act) the fused route is compiled for; ops/fused_block_bwd.py
+// keeps the same set.
+int launch_fused_any(const Site& S) {
+  const int ci = S.ci, co = S.co;
+  if (S.in_act) {
+    if (ci == 64 && co == 256) return launch_fused<64, 256, true>(S);
+    if (ci == 64 && co == 64) return launch_fused<64, 64, true>(S);
+  } else {
+    if (ci == 64 && co == 256) return launch_fused<64, 256, false>(S);
+    if (ci == 64 && co == 64) return launch_fused<64, 64, false>(S);
+    if (ci == 256 && co == 64) return launch_fused<256, 64, false>(S);
+    if (ci == 256 && co == 128) return launch_fused<256, 128, false>(S);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_tiled(const Site& S) {
+  const long long n_gt = cdiv(S.M, GR), n_mt = cdiv(S.M, TB);
+  float* part_w = S.work;
+  float* part_o = part_w + (long long)S.parts * S.ci * S.co;
+  float* part_i = part_o + n_gt * 2 * S.co;
+  float* scratch = part_i + n_mt * 2 * S.ci;
+  bf16* dz = static_cast<bf16*>(S.dz);
+  // With in_act, xa [M, ci] follows dz in the same scratch.
+  bf16* xa = S.in_act ? dz + S.M * S.co : nullptr;
+  CUtensorMap mdz_rows, mw, mxa, mdz;
+  if (!(make_map(&mdz_rows, dz, S.M, S.co, TB) &&
+        make_map(&mw, S.w, S.ci, S.co, TB) &&
+        make_map(&mxa, S.in_act ? xa : S.x, S.M, S.ci, 64) &&
+        make_map(&mdz, dz, S.M, S.co, 64)))
+    return (int)cudaErrorInvalidValue;
+  site_gate<bf16><<<dim3((unsigned)n_gt, (unsigned)cdiv(S.co, GC)), THREADS, 0,
+                    S.stream>>>(
+      static_cast<const bf16*>(S.g), static_cast<const bf16*>(S.z),
+      static_cast<const int8_t*>(S.mask), S.mul_o, S.add_o, dz,
+      static_cast<bf16*>(S.gp), part_o, S.M, S.co, 1);
+  cudaFuncSetAttribute(site_rows_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       TILED_SMEM);
+  site_rows_tc<<<dim3((unsigned)n_mt, (unsigned)cdiv(S.ci, TB)), FT, TILED_SMEM,
+                 S.stream>>>(mdz_rows, mw, static_cast<const bf16*>(S.x),
+                             static_cast<const bf16*>(S.ds), S.mul_i, S.add_i,
+                             static_cast<bf16*>(S.dx), xa, part_i, S.M, S.ci,
+                             S.co, S.in_act);
+  const long long rows = cdiv(cdiv(S.M, S.parts), 64) * 64;
+  const unsigned nsplit = (unsigned)cdiv(S.M, rows);
+  cudaFuncSetAttribute(site_dw_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       TILED_SMEM);
+  site_dw_tc<<<dim3((unsigned)cdiv(S.ci, TB), (unsigned)cdiv(S.co, TB), nsplit),
+               FT, TILED_SMEM, S.stream>>>(mxa, mdz, part_w, S.M, S.ci, S.co,
+                                           rows);
+  reduce_all(part_w, S.out, nsplit, (long long)S.ci * S.co, scratch, S.stream);
+  reduce_all(part_o, S.out + (long long)S.ci * S.co, n_gt, 2LL * S.co, scratch,
+             S.stream);
+  if (S.in_act)
+    reduce_all(part_i, S.out + (long long)S.ci * S.co + 2 * S.co, n_mt,
+               2LL * S.ci, scratch, S.stream);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-void launch_site(const void* g, const void* z, const void* mask, const void* x,
-                 const void* ds, const void* w, const float* mul_o,
-                 const float* add_o, const float* mul_i, const float* add_i,
-                 void* dx, void* gp, float* dw, float* sums_o, float* sums_i,
-                 void* dz, float* work, long long M, int ci, int co,
-                 int in_act, int splits, int vec, cudaStream_t stream) {
-  const long long n_gt = cdiv(M, GR), n_mt = cdiv(M, RM);
-  float* part_w = work;
-  float* part_o = part_w + (long long)splits * ci * co;
-  float* part_i = part_o + n_gt * 2 * co;
-  float* scratch = part_i + n_mt * 2 * ci;
-  T* dzt = static_cast<T*>(dz);
-
-  site_gate<T><<<dim3((unsigned)n_gt, (unsigned)cdiv(co, GC)), THREADS, 0,
-                 stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(z),
-      static_cast<const int8_t*>(mask), mul_o, add_o, dzt,
-      static_cast<T*>(gp), part_o, M, co, vec);
-  site_rows<T><<<dim3((unsigned)n_mt, (unsigned)cdiv(ci, RN)), THREADS, 0,
-                 stream>>>(
-      dzt, static_cast<const T*>(x), static_cast<const T*>(ds),
-      static_cast<const T*>(w), mul_i, add_i, static_cast<T*>(dx), part_i, M,
-      ci, co, in_act, vec);
+int launch_generic(const Site& S) {
+  const long long n_gt = cdiv(S.M, GR), n_mt = cdiv(S.M, RM);
+  float* part_w = S.work;
+  float* part_o = part_w + (long long)S.parts * S.ci * S.co;
+  float* part_i = part_o + n_gt * 2 * S.co;
+  float* scratch = part_i + n_mt * 2 * S.ci;
+  T* dz = static_cast<T*>(S.dz);
+  site_gate<T><<<dim3((unsigned)n_gt, (unsigned)cdiv(S.co, GC)), THREADS, 0,
+                 S.stream>>>(
+      static_cast<const T*>(S.g), static_cast<const T*>(S.z),
+      static_cast<const int8_t*>(S.mask), S.mul_o, S.add_o, dz,
+      static_cast<T*>(S.gp), part_o, S.M, S.co, S.vec);
+  site_rows<T><<<dim3((unsigned)n_mt, (unsigned)cdiv(S.ci, RN)), THREADS, 0,
+                 S.stream>>>(
+      dz, static_cast<const T*>(S.x), static_cast<const T*>(S.ds),
+      static_cast<const T*>(S.w), S.mul_i, S.add_i, static_cast<T*>(S.dx),
+      part_i, S.M, S.ci, S.co, S.in_act, S.vec);
   constexpr int K = DwMma<T>::K;
-  const long long rows = cdiv(cdiv(M, splits), K) * K;
-  const unsigned nsplit = (unsigned)cdiv(M, rows);
-  site_dw<T><<<dim3((unsigned)cdiv(ci, WI), (unsigned)cdiv(co, WK), nsplit),
-               THREADS, 0, stream>>>(dzt, static_cast<const T*>(x), mul_i,
-                                     add_i, part_w, M, ci, co, in_act, rows,
-                                     vec);
-  reduce_all(part_w, dw, nsplit, (long long)ci * co, scratch, stream);
-  reduce_all(part_o, sums_o, n_gt, 2LL * co, scratch, stream);
-  if (in_act) reduce_all(part_i, sums_i, n_mt, 2LL * ci, scratch, stream);
+  const long long rows = cdiv(cdiv(S.M, S.parts), K) * K;
+  const unsigned nsplit = (unsigned)cdiv(S.M, rows);
+  site_dw<T><<<dim3((unsigned)cdiv(S.ci, WI), (unsigned)cdiv(S.co, WK), nsplit),
+               THREADS, 0, S.stream>>>(dz, static_cast<const T*>(S.x), S.mul_i,
+                                       S.add_i, part_w, S.M, S.ci, S.co,
+                                       S.in_act, rows, S.vec);
+  reduce_all(part_w, S.out, nsplit, (long long)S.ci * S.co, scratch, S.stream);
+  reduce_all(part_o, S.out + (long long)S.ci * S.co, n_gt, 2LL * S.co, scratch,
+             S.stream);
+  if (S.in_act)
+    reduce_all(part_i, S.out + (long long)S.ci * S.co + 2 * S.co, n_mt,
+               2LL * S.ci, scratch, S.stream);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of workspace fbb_site needs for this shape and split count.
-long long fbb_workspace_floats(long long M, int ci, int co, int splits) {
-  const long long n_gt = cdiv(M, GR), n_mt = cdiv(M, RM);
-  long long scratch = scratch_floats(splits, (long long)ci * co);
-  const long long so = scratch_floats(n_gt, 2LL * co);
-  const long long si = scratch_floats(n_mt, 2LL * ci);
-  scratch = scratch > so ? scratch : so;
-  scratch = scratch > si ? scratch : si;
-  return (long long)splits * ci * co + n_gt * 2 * co + n_mt * 2 * ci + scratch;
+// Floats of workspace fbb_site needs: route 0 generic, 1 tiled, 2 fused;
+// parts: the M-splits of the weight gradient (0, 1) or the blocks (2).
+long long fbb_workspace_floats(int route, long long M, int ci, int co,
+                               int parts) {
+  return workspace(M, ci, co, route, parts);
 }
 
-// One site on `stream`.  dtype: 0 float32, 1 bfloat16.  mask, ds, mul_i,
-// add_i, gp and sums_i may be null (mul_i, add_i and sums_i are read only
-// with in_act; gp is written when not null).  dz is an [M, co] scratch of
-// the activation dtype.  vec: 16-byte loads (both channel counts multiples
-// of 8, every pointer 16-byte aligned).  Returns cudaGetLastError().
-int fbb_site(int dtype, const void* g, const void* z, const void* mask,
-             const void* x, const void* ds, const void* w, const void* mul_o,
-             const void* add_o, const void* mul_i, const void* add_i,
-             void* dx, void* gp, void* dw, void* sums_o, void* sums_i,
-             void* dz, void* work, long long M, int ci, int co, int in_act,
-             int splits, int vec, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // Two reduction passes cover at most RED_CHUNK^2 row tiles.
-  if (M <= 0 || cdiv(M, GR) > (long long)RED_CHUNK * RED_CHUNK || splits < 1)
+// One site on `stream`.  dtype: 0 float32, 1 bfloat16 (routes 1 and 2 take
+// bfloat16 only).  mask, ds, mul_i, add_i and gp may be null (mul_i and
+// add_i are read only with in_act; gp is written when not null).  out is
+// f32 [ci*co + 2*co + 2*ci]: dW, sums_o, sums_i (written with in_act).  dz
+// is an [M, co] scratch of the activation dtype (routes 0 and 1), followed
+// in route 1 with in_act by [M, ci] for xa.  vec
+// (route 0): 16-byte loads (both channel counts multiples of 8, every
+// pointer 16-byte aligned); routes 1 and 2 need that and channel counts
+// that are multiples of 64.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what the route does not take.
+int fbb_site(int dtype, int route, const void* g, const void* z,
+             const void* mask, const void* x, const void* ds, const void* w,
+             const void* mul_o, const void* add_o, const void* mul_i,
+             const void* add_i, void* dx, void* gp, void* out, void* dz,
+             void* work, long long M, int ci, int co, int in_act, int parts,
+             int vec, void* stream) {
+  Site S{g, z, mask, x, ds, w,
+         static_cast<const float*>(mul_o), static_cast<const float*>(add_o),
+         static_cast<const float*>(mul_i), static_cast<const float*>(add_i),
+         dx, gp, dz, static_cast<float*>(out), static_cast<float*>(work),
+         M, ci, co, in_act, parts, vec, static_cast<cudaStream_t>(stream)};
+  // Two reduction passes cover at most RED_CHUNK^2 partials.
+  const long long most = (long long)RED_CHUNK * RED_CHUNK;
+  if (M <= 0 || ci <= 0 || co <= 0 || parts < 1 || cdiv(M, GR) > most ||
+      parts > most)
     return (int)cudaErrorInvalidValue;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto fw = [](void* p) { return static_cast<float*>(p); };
-  if (dtype == 1)
-    launch_site<bf16>(g, z, mask, x, ds, w, f(mul_o), f(add_o), f(mul_i),
-                      f(add_i), dx, gp, fw(dw), fw(sums_o), fw(sums_i), dz,
-                      fw(work), M, ci, co, in_act, splits, vec, s);
-  else if (dtype == 0)
-    launch_site<float>(g, z, mask, x, ds, w, f(mul_o), f(add_o), f(mul_i),
-                       f(add_i), dx, gp, fw(dw), fw(sums_o), fw(sums_i), dz,
-                       fw(work), M, ci, co, in_act, splits, vec, s);
-  else
+  if (route != 0 && (dtype != 1 || !vec || ci % 64 || co % 64 ||
+                     M > 0x7fffffffLL))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (route == 2) return launch_fused_any(S);
+  if (route == 1) return launch_tiled(S);
+  if (route != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) return launch_generic<bf16>(S);
+  if (dtype == 0) return launch_generic<float>(S);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

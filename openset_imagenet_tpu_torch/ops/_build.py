@@ -4,7 +4,9 @@ Shared by the hand-written CUDA kernels (K5 in ``csrc/fused_block_bwd.cu``,
 K6 in ``csrc/split_site.cu``).  A source is compiled at first use for
 Hopper (``-gencode arch=compute_90a,code=sm_90a``) into a shared library
 with a plain C interface, ``build/kernels/<name>_<hash>.so`` of the
-checkout, keyed by the first 16 hex digits of the source's SHA-256, with
+checkout, keyed by the first 16 hex digits of a SHA-256 over the source
+and every header it names with ``#include "..."`` (:func:`source_key`;
+an edit to a shared header rebuilds each source that includes it), with
 ptxas's report (registers, shared memory, spills of each kernel) beside it
 as ``<name>_<hash>.ptxas.txt``.  A library already built for the same
 source is loaded as it is.  A failed build raises with nvcc's output.
@@ -17,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -26,6 +29,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _LOADED: Dict[pathlib.Path, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -42,9 +46,26 @@ def nvcc() -> str:
     return found
 
 
+def source_key(source: pathlib.Path) -> str:
+    """16 hex digits of a SHA-256 over ``source`` and, in the order first
+    named, each header it or a header of it includes with quotes (looked
+    up beside the file that names it)."""
+    digest = hashlib.sha256()
+    seen, todo = set(), [pathlib.Path(source).resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        digest.update(path.name.encode() + b"\0" + text + b"\0")
+        todo += [path.parent / m.decode() for m in _INCLUDE.findall(text)]
+    return digest.hexdigest()[:16]
+
+
 def build(source: pathlib.Path, name: str) -> pathlib.Path:
     """Compile ``source`` unless its library exists; return the library."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    digest = source_key(source)
     lib_path = BUILD_DIR / f"{name}_{digest}.so"
     if lib_path.exists():
         return lib_path

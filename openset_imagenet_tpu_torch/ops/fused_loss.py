@@ -26,15 +26,17 @@ missing Triton, a failed build or launch, or an argument the kernel does
 not take is an error, never a silent switch to the plain version.
 
 ``LAUNCHES`` counts kernel launches (one per call of a wrapper that
-launched, the two-stage sum included), so a run can show that its main
-path went through the kernels.
+launched, K1's two-stage sum included), so a run can show that its main
+path went through the kernels.  K3 is one launch per call: its programs
+take tickets from an int32 counter kept per device and stream
+(:func:`_ticket`), and the last one adds the partials.
 """
 
 from __future__ import annotations
 
 import os
 import pathlib
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -54,6 +56,13 @@ _TILE_ELEMS = 2048
 # Programs of the first stage; a program loops over row tiles beyond this.
 _MAX_PROGRAMS = 1024
 _SUM_BLOCK = 512
+# K3's row tile: at C <= 128 one or two rows, one warp a program.  On the
+# H100 such small programs and a ticket took less time at [64, 117] and
+# [256, 117] than 2048-element tiles or one program holding every row
+# (chip_smoke.py times the three grids side by side).
+_CE_TILE_ELEMS = 256
+# K3's ticket counters, one per (device index, stream); 0 between calls.
+_TICKETS: Dict[Tuple[int, int], Tensor] = {}
 
 
 # -- plain versions (CPU path; the reference the kernels are held to) --------
@@ -169,11 +178,27 @@ def _check_scale(scale: Tensor, logits: Tensor) -> None:
                          f"{tuple(scale.shape)} on {scale.device}")
 
 
-def _tiling(c: int) -> Tuple[int, int]:
+def _tiling(c: int, tile_elems: int = _TILE_ELEMS) -> Tuple[int, int]:
     """(BLOCK_C, rows per tile): C padded to a power of two, and rows so a
-    tile holds at most ``_TILE_ELEMS`` elements."""
+    tile holds at most ``tile_elems`` elements (one row at least)."""
     block_c = max(16, 1 << (c - 1).bit_length())
-    return block_c, max(1, min(128, _TILE_ELEMS // block_c))
+    return block_c, max(1, min(128, tile_elems // block_c))
+
+
+def _grid(b: int, c: int, tile_elems: Optional[int] = _TILE_ELEMS
+          ) -> Tuple[int, int, int, int]:
+    """``(BLOCK_C, rows per tile, row tiles per program, programs)`` of a
+    forward over ``[b, c]``: up to ``_MAX_PROGRAMS`` programs, each taking
+    the same count of consecutive tiles of at most ``tile_elems`` elements
+    (the last may run past ``b``, masked); ``tile_elems=None``: one
+    program holding every row in one tile.
+    """
+    if tile_elems is None:
+        return _tiling(c)[0], 1 << (b - 1).bit_length(), 1, 1
+    block_c, tile_rows = _tiling(c, tile_elems)
+    n_tiles = -(-b // tile_rows)
+    tiles = -(-n_tiles // _MAX_PROGRAMS)
+    return block_c, tile_rows, tiles, -(-n_tiles // tiles)
 
 
 def _launch(kernel: str, logits: Tensor, labels: Tensor, rows: Tensor,
@@ -184,10 +209,7 @@ def _launch(kernel: str, logits: Tensor, labels: Tensor, rows: Tensor,
     """
     k = _kernels()
     b, c = logits.shape
-    block_c, tile_rows = _tiling(c)
-    n_tiles = -(-b // tile_rows)
-    tiles = -(-n_tiles // _MAX_PROGRAMS)   # row tiles per program
-    grid = -(-n_tiles // tiles)
+    block_c, tile_rows, tiles, grid = _grid(b, c)
     partials = torch.empty((grid, 2), dtype=torch.float32,
                            device=logits.device)
     out = torch.empty(2, dtype=torch.float32, device=logits.device)
@@ -196,6 +218,39 @@ def _launch(kernel: str, logits: Tensor, labels: Tensor, rows: Tensor,
         *scalars, ROWS=tile_rows, BLOCK_C=block_c,
         num_warps=4 if tile_rows * block_c <= _TILE_ELEMS else 8)
     k.sum_partials[(1,)](partials, out, grid, BLOCK=_SUM_BLOCK, num_warps=4)
+    return out
+
+
+def _ticket(device: torch.device) -> Tensor:
+    """The int32 ticket counter of the current stream on ``device``.
+
+    Made once with ``torch.zeros``; every K3 launch leaves it at 0 (its
+    last program resets it), so a call costs no launch to clear it.
+    """
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    counter = _TICKETS.get(key)
+    if counter is None:
+        counter = _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+                                              device=device)
+    return counter
+
+
+def _ce_launch(logits: Tensor, labels: Tensor, rows: Tensor) -> Tensor:
+    """K3 in one launch; returns the float32 ``[2]`` ``(sum, weight)``."""
+    k = _kernels()
+    b, c = logits.shape
+    block_c, tile_rows, tiles, grid = _grid(b, c, _CE_TILE_ELEMS)
+    out = torch.empty(2, dtype=torch.float32, device=logits.device)
+    partials = out if grid == 1 else torch.empty(
+        (grid, 2), dtype=torch.float32, device=logits.device)
+    elems = tile_rows * block_c
+    # Only the kernel touches the counter, and its last program resets it:
+    # a launch that raises here never ran, so the counter stays at 0.
+    k.ce_fwd_once[(grid,)](
+        logits, labels, rows, partials, out, _ticket(logits.device), b, c,
+        logits.stride(0), tiles, grid - 1, ROWS=tile_rows, BLOCK_C=block_c,
+        SUM_BLOCK=_SUM_BLOCK,
+        num_warps=1 if elems <= 256 else 4 if elems <= 2048 else 8)
     return out
 
 
@@ -216,7 +271,7 @@ def ce_sums(logits: Tensor, labels: Tensor, row_weights: Tensor
     on CPU."""
     if not _use_kernel(logits, labels, row_weights):
         return ce_sums_plain(logits, labels, row_weights)
-    out = _launch("ce_fwd_partials", logits, labels, row_weights)
+    out = _ce_launch(logits, labels, row_weights)
     LAUNCHES["ce_fwd"] += 1
     return out[0], out[1]
 

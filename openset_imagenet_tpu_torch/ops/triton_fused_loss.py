@@ -9,8 +9,9 @@ Replaces (``openset_imagenet_tpu/ops/fused_loss.py``):
 * :func:`entropic_fwd_partials` -- ``_fwd_kernel`` via ``_fused_sums``.
   Per row: max, log-sum-exp, the target dot (``l_y`` for known rows,
   ``(w/C) * sum(l)`` for negative rows) and ``(T * lse - t_dot) * mask``.
-* :func:`ce_fwd_partials` -- ``_ce_fwd_kernel`` via ``_ce_sums``.  Per row:
-  ``r * (lse - l_y)`` with the label clipped to ``[0, C-1]``.
+* :func:`ce_fwd_once` -- ``_ce_fwd_kernel`` via ``_ce_sums``.  Per row:
+  ``r * (lse - l_y)`` with the label clipped to ``[0, C-1]``; the sum of
+  the partials in the same launch (below).
 * :func:`entropic_bwd` -- ``_bwd_kernel`` via ``_fused_grad``:
   ``(T * softmax(l) - targets) * mask * scale``, targets one-hot for
   ``label >= 0`` and uniform ``w/C`` otherwise (``T = 1`` or ``w``).
@@ -22,10 +23,13 @@ once (``4 * B * C`` bytes) plus 8-12 bytes a row, and writes two floats per
 program; there is no tensor-core work.  Design: one pass over each row
 block with C padded to the next power of two (masked lanes load ``-inf``
 for the max and count 0 in the sums), no ``[B, C]`` intermediate in device
-memory, and a deterministic two-stage sum -- each program writes its
-partial ``(sum, weight)`` pair and :func:`sum_partials`, one program, adds
-them in a fixed order.  No float atomics, so two launches on the same
-input give the same bits, as the TPU's sequential grid does.  The row loop
+memory, and a deterministic sum of partials -- each program writes its
+partial ``(sum, weight)`` pair, and then K1 launches :func:`sum_partials`,
+one program that adds them in a fixed order, while K3
+(:func:`ce_fwd_once`) adds them in its own last program to finish, so
+its call is one launch: at the train step's shapes the second launch,
+not the bytes, set K3's time.  No float atomics, so two launches on the
+same input give the same bits, as the TPU's sequential grid does.  The row loop
 inside a program stands in for that sequential grid.  The TPU kernel's
 padding of B to 256-row blocks is not carried over: the ragged edge is
 masked in the kernel.
@@ -90,9 +94,23 @@ def entropic_fwd_partials(logits_ptr, labels_ptr, mask_ptr, part_ptr,
 
 
 @triton.jit
-def ce_fwd_partials(logits_ptr, labels_ptr, weight_ptr, part_ptr,
-                    n_rows, n_cols, row_stride, tiles,
-                    ROWS: tl.constexpr, BLOCK_C: tl.constexpr):
+def ce_fwd_once(logits_ptr, labels_ptr, weight_ptr, part_ptr, out_ptr,
+                ticket_ptr, n_rows, n_cols, row_stride, tiles, last,
+                ROWS: tl.constexpr, BLOCK_C: tl.constexpr,
+                SUM_BLOCK: tl.constexpr):
+    """K3 in one launch: one partial ``(sum r * (lse - l_y), sum r)`` per
+    program, then the last program to finish adds them in index order.
+
+    ``last`` is the grid size less one.  A grid of one program writes its
+    sums to ``out`` and takes no ticket.  Otherwise each program stores its
+    pair, passes a block barrier (every thread's store is issued before
+    the ticket), and takes a ticket from the int32 counter with an
+    acq_rel atomic at GPU scope.  The program that draws ``last`` reads
+    the partials through L2 (``.cg``: no stale L1 line), adds them in
+    index order as :func:`sum_partials` does, writes ``out`` and resets
+    the counter to 0 for the next launch or graph replay.  No float
+    atomics: the same bits at any program count and on every launch.
+    """
     pid = tl.program_id(0)
     cols = tl.arange(0, BLOCK_C)
     loss_acc = tl.zeros([ROWS], dtype=tl.float32)
@@ -109,8 +127,30 @@ def ce_fwd_partials(logits_ptr, labels_ptr, weight_ptr, part_ptr,
                      axis=1)
         loss_acc += tl.where(row_ok, r * (lse - l_y), 0.0)
         w_acc += r
-    tl.store(part_ptr + pid * 2, tl.sum(loss_acc, axis=0))
-    tl.store(part_ptr + pid * 2 + 1, tl.sum(w_acc, axis=0))
+    loss = tl.sum(loss_acc, axis=0)
+    weight = tl.sum(w_acc, axis=0)
+    if last == 0:
+        tl.store(out_ptr, loss)
+        tl.store(out_ptr + 1, weight)
+    else:
+        tl.store(part_ptr + pid * 2, loss)
+        tl.store(part_ptr + pid * 2 + 1, weight)
+        tl.debug_barrier()
+        ticket = tl.atomic_add(ticket_ptr, 1, sem="acq_rel", scope="gpu")
+        if ticket == last:
+            offs = tl.arange(0, SUM_BLOCK)
+            acc0 = tl.zeros([SUM_BLOCK], dtype=tl.float32)
+            acc1 = tl.zeros([SUM_BLOCK], dtype=tl.float32)
+            for start in range(0, last + 1, SUM_BLOCK):
+                idx = start + offs
+                ok = idx <= last
+                acc0 += tl.load(part_ptr + idx * 2, mask=ok, other=0.0,
+                                cache_modifier=".cg")
+                acc1 += tl.load(part_ptr + idx * 2 + 1, mask=ok, other=0.0,
+                                cache_modifier=".cg")
+            tl.store(out_ptr, tl.sum(acc0, axis=0))
+            tl.store(out_ptr + 1, tl.sum(acc1, axis=0))
+            tl.store(ticket_ptr, 0)
 
 
 @triton.jit

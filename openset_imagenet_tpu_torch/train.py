@@ -34,11 +34,13 @@ Tensor = torch.Tensor
 
 
 def build_model(cfg, n_classes: int, dtype: torch.dtype = torch.bfloat16,
-                device=None) -> ResNet50:
+                device="cuda") -> ResNet50:
     """Two-head ResNet from ``cfg.model`` (variant default ``resnet50``).
 
     ``fc_layer_dim == out_features == n_classes`` and no logit bias, as
-    the reference trains it (reference ``train.py:350-353``).
+    the reference trains it (reference ``train.py:350-353``).  Built on
+    the card unless the caller names another ``device`` (``"cpu"``);
+    without a card the default raises torch's own error.
     """
     model_cfg = getattr(cfg, "model", None)
 

@@ -80,6 +80,46 @@ def test_two_launches_give_the_same_bits(cuda):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("b,c", [(64, 117), (256, 117), (1000, 1000),
+                                 (4099, 3)])
+def test_ce_is_one_launch_with_the_same_bits_every_time(cuda, b, c):
+    """K3: one kernel per call, the same bits over 50 launches and over
+    a CUDA-graph replay of 20 calls, and its ticket counter back at 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    logits, labels, mask = _batch(cuda, b, c, seed=c)
+    weights = mask * torch.rand(b, device=cuda) + 0.1 * mask
+    first = torch.stack(fl.ce_sums(logits, labels, weights))
+    _close(first, fl.ce_sums_plain(logits, labels, weights))
+    for _ in range(50):
+        assert torch.equal(torch.stack(fl.ce_sums(logits, labels, weights)),
+                           first)
+    for _ in range(2):   # a first profiler window can come back empty
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fl.ce_sums(logits, labels, weights)
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 10, kernels
+    assert all("ce_fwd_once" in k for k in kernels), kernels
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fl.ce_sums(logits, labels, weights)
+    torch.cuda.current_stream().wait_stream(side)
+    graph, outs = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for _ in range(20):
+            outs.append(fl.ce_sums(logits, labels, weights))
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(torch.stack(o), first) for o in outs)
+    assert all(int(t.item()) == 0 for t in fl._TICKETS.values())
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     logits, labels, mask = _batch(cuda, 16, 10)
     with pytest.raises(TypeError, match="float32"):
@@ -170,7 +210,8 @@ def test_train_step_on_cuda_goes_through_the_kernels(cuda):
     from openset_imagenet_tpu_torch.config import NameSpace
 
     model = engine.build_model(NameSpace({"model": {
-        "variant": "tiny50", "bn_stats_rows": 4}}), 8).to(cuda)
+        "variant": "tiny50", "bn_stats_rows": 4}}), 8)   # on the card
+    assert next(model.parameters()).device.type == "cuda"
     state = engine.create_state(model, engine.build_optimizer(
         NameSpace({"lr": 1e-3}), 1))
     step = engine.make_train_step(engine.make_loss_fn("entropic",
@@ -261,6 +302,70 @@ def test_k5_kernel_matches_plain(cuda_k5, form, dtype, shape):
         assert torch.equal(a, b)   # the same bits on a second launch
 
 
+# Every pointwise site of resnet50 at 224 px, batch 256: (M, ci, co, form).
+# The M = 802,816 sites take the fused route, the rest the tiled one.
+RESNET50_SITES = [
+    (802816, 64, 256, "tail"), (802816, 64, 64, "head"),
+    (802816, 256, 64, "head_ds"), (802816, 256, 128, "head"),
+    (200704, 128, 512, "tail"), (200704, 512, 128, "head_ds"),
+    (200704, 512, 256, "head"), (50176, 256, 1024, "tail"),
+    (50176, 1024, 256, "head_ds"), (50176, 1024, 512, "head"),
+    (12544, 512, 2048, "tail"), (12544, 2048, 512, "head_ds")]
+
+
+def _k5_device_args(device, m, ci, co, dtype, form, seed):
+    """Site inputs drawn on the card (numpy is slow at 200 M values)."""
+    in_act, has_mask, has_ds, emit_gp = K5_FORMS[form]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draw = lambda *s, dt=dtype, scale=1.0: (torch.randn(
+        *s, generator=gen, device=device) * scale).to(dt)
+    mask = (torch.randint(0, 2, (m, co), generator=gen, device=device)
+            .to(torch.int8) if has_mask else None)
+    args = [draw(m, co), draw(m, co), mask, draw(m, ci),
+            draw(m, ci) if has_ds else None, draw(ci, co, scale=0.05),
+            draw(co, dt=torch.float32), draw(co, dt=torch.float32),
+            draw(ci, dt=torch.float32) if in_act else None,
+            draw(ci, dt=torch.float32) if in_act else None]
+    return args, dict(in_act=in_act, emit_gp=emit_gp)
+
+
+def _k5_same_bits_and_close(fbb, args, kw, dtype):
+    got = fbb.bwd_site(*args, **kw)
+    again = fbb.bwd_site(*args, **kw)
+    torch.cuda.synchronize()
+    _k5_close(got, fbb.bwd_site_plain(*args, **kw), dtype)
+    flat = lambda out: [t for t in (out[0], out[1], out[2], *out[3], *out[4])
+                        if t is not None]
+    for a, b in zip(flat(got), flat(again)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("site", RESNET50_SITES)
+def test_k5_at_every_resnet50_site(cuda_k5, site):
+    from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
+
+    m, ci, co, form = site
+    args, kw = _k5_device_args(cuda_k5, m, ci, co, torch.bfloat16, form,
+                               seed=m + ci + co)
+    in_act, has_mask, has_ds, _ = K5_FORMS[form]
+    route = fbb._plan(m, ci, co, torch.bfloat16, in_act, has_mask, has_ds,
+                      True, fbb._sm_count(cuda_k5.index or 0))[0]
+    assert route == ("fused" if m == 802816 else "tiled")
+    _k5_same_bits_and_close(fbb, args, kw, torch.bfloat16)
+
+
+# Ragged M on the fused and tiled routes, ragged channels on the generic.
+@pytest.mark.parametrize("shape,form", [
+    ((4099, 64, 256), "tail"), ((1003, 256, 64), "head_ds"),
+    ((12544 + 77, 512, 2048), "tail"), ((1003, 72, 40), "head_ds")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k5_ragged_sites(cuda_k5, shape, form, dtype):
+    from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
+
+    args, kw = _k5_device_args(cuda_k5, *shape, dtype, form, seed=sum(shape))
+    _k5_same_bits_and_close(fbb, args, kw, dtype)
+
+
 def test_k5_refuses_what_it_does_not_take(cuda_k5):
     from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
 
@@ -329,8 +434,7 @@ def test_fused_train_step_on_cuda_goes_through_k5(cuda_k5):
 
     model = engine.build_model(NameSpace({"model": {
         "variant": "tiny50", "bn_stats_rows": 4, "fused_blocks": True,
-        "boundary_mask": True}}), 8).to(cuda_k5)
-    model = model.to(memory_format=torch.channels_last)
+        "boundary_mask": True}}), 8).to(memory_format=torch.channels_last)
     state = engine.create_state(model, engine.build_optimizer(
         NameSpace({"lr": 1e-3}), 1))
     step = engine.make_train_step(engine.make_loss_fn("entropic"))

@@ -109,7 +109,7 @@ def test_train_epoch_matches_jax(tmp_path, loss):
     ds, n, weights = _dataset(pdataset, csv, loss)
     cfg = NameSpace({"model": {"variant": "tiny50",
                                "bn_stats_rows": GHOST[loss]}})
-    model = pengine.build_model(cfg, n, dtype=torch.float32)
+    model = pengine.build_model(cfg, n, dtype=torch.float32, device="cpu")
     convert.load_into(model, convert.variables_to_state_dict(variables))
     state = pengine.create_state(model, pengine.build_optimizer(
         NameSpace({"type": "sgd", "lr": LR}), 1))

@@ -328,7 +328,7 @@ def test_train_step_matches_jax(kind):
                            "opt_state": new.opt_state})
 
     cfg = NameSpace({"model": {"variant": "tiny50", **MODEL_KW}})
-    model = pengine.build_model(cfg, n, dtype=torch.float32)
+    model = pengine.build_model(cfg, n, dtype=torch.float32, device="cpu")
     convert.load_into(model, convert.variables_to_state_dict(variables))
     pstate = pengine.create_state(model, pengine.build_optimizer(
         NameSpace({"type": kind, "lr": LR[kind]}), 1))
@@ -389,7 +389,7 @@ def test_tail_step_refuses_a_fused_ragged_tail():
     loss_fn = pengine.make_loss_fn("entropic")
     regular = pengine.make_train_step(loss_fn)
     model = pengine.build_model(NameSpace({"model": {
-        "variant": "tiny50", **MODEL_KW}}), 4)
+        "variant": "tiny50", **MODEL_KW}}), 4, device="cpu")
     assert pengine.make_tail_step(loss_fn, model, 0, regular) is None
     for n_tail in (1, GHOST, 3):
         with pytest.raises(ValueError, match="drop_remainder=True"):

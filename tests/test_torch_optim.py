@@ -103,7 +103,7 @@ def test_deferred_optimizer_options_raise():
 
 def _tiny_state(kind="adam"):
     cfg = NameSpace({"model": {"variant": "tiny50", "bn_stats_rows": 4}})
-    model = pengine.build_model(cfg, 5, dtype=torch.float32)
+    model = pengine.build_model(cfg, 5, dtype=torch.float32, device="cpu")
     tx = pengine.build_optimizer(NameSpace({"type": kind, "lr": 1e-2,
                                             "warmup_epochs": 1}), 2)
     return pengine.create_state(model, tx)

@@ -89,7 +89,8 @@ def test_validate_matches_jax(loss):
     jengine.validate(state, pipeline, 0, jax_step, ref)
 
     cfg = NameSpace({"model": {"variant": "tiny50"}})
-    model = pengine.build_model(cfg, n_classes, dtype=torch.float32)
+    model = pengine.build_model(cfg, n_classes, dtype=torch.float32,
+                                device="cpu")
     convert.load_into(model, convert.variables_to_state_dict(variables))
     for fused in ("auto", False):
         got = _trackers()
@@ -120,7 +121,7 @@ def _float32_predictors(path, monkeypatch):
         return jax_build(cfg.model.variant, fc_layer_dim=n_classes,
                          out_features=n_classes, dtype=jnp.float32)
 
-    def port_f32(cfg, n_classes, device=None):
+    def port_f32(cfg, n_classes, device="cpu"):
         return pengine.build_model(cfg, n_classes, dtype=torch.float32,
                                    device=device)
 
@@ -179,13 +180,13 @@ def test_port_checkpoint_loads_in_both_packages(tmp_path):
 
     _, variables = _jax_state(5, seed=31)
     model = pengine.build_model(NameSpace({"model": {"variant": "tiny50"}}),
-                                5, dtype=torch.float32)
+                                5, dtype=torch.float32, device="cpu")
     convert.load_into(model, convert.variables_to_state_dict(variables))
     path = tmp_path / "port.pth"
     checkpoint.save_checkpoint(path, model, epoch=2, best_score=0.5)
     assert checkpoint.infer_n_classes(path) == 5
     again = pengine.build_model(NameSpace({"model": {"variant": "tiny50"}}),
-                                5, dtype=torch.float32)
+                                5, dtype=torch.float32, device="cpu")
     # epoch 2 finished: stored as 3, the epoch to resume at.
     assert checkpoint.load_checkpoint(path, again) == (3, 0.5, 0)
     for key, value in model.state_dict().items():

@@ -110,7 +110,8 @@ def _jax_run(loss, kind):
 def _port_state(loss, kind, variables, ghost=None):
     ghost = GHOST[loss] if ghost is None else ghost
     cfg = NameSpace({"model": {"variant": "tiny50", "bn_stats_rows": ghost}})
-    model = pengine.build_model(cfg, _n_classes(loss), dtype=torch.float32)
+    model = pengine.build_model(cfg, _n_classes(loss), dtype=torch.float32,
+                                device="cpu")
     convert.load_into(model, convert.variables_to_state_dict(variables))
     tx = pengine.build_optimizer(NameSpace({"type": kind, "lr": LR[kind]}),
                                  1)
@@ -247,7 +248,7 @@ def test_tail_rule():
     for ghost, n_tail, same in ((2, 3, True), (3, 3, True), (4, 3, False),
                                 (0, 3, False)):
         model = pengine.build_model(NameSpace({"model": {
-            "variant": "tiny", "bn_stats_rows": ghost}}), 4)
+            "variant": "tiny", "bn_stats_rows": ghost}}), 4, device="cpu")
         tail = pengine.make_tail_step(loss_fn, model, n_tail, regular)
         assert (tail is regular) == same, (ghost, n_tail)
     assert pengine.make_tail_step(loss_fn, model, 0, regular) is None

@@ -1,0 +1,272 @@
+#!/usr/bin/env python3
+"""K3, K5 and the train step of two checkouts of the PyTorch port, in turns.
+
+    python tools/ab_torch_kernels.py --parent build/parent [--steps 10]
+
+``--parent`` is another checkout of the repository (for example the parent
+commit unpacked with ``git archive <commit> | tar -x -C build/parent``;
+``build/`` is git-ignored).  The script runs one process per turn, in the
+order parent, change, change, parent (the change is this checkout), each
+importing ``openset_imagenet_tpu_torch`` from its own tree and building
+its kernels there, so both versions run on one card in one call.  Each
+turn measures, on the card:
+
+* K3 (``ops.fused_loss.ce_sums``) at [64, 117] and [256, 117], float32
+  logits: device µs per call from a CUDA-graph replay of 20 calls, beside
+  ``F.cross_entropy(weight=..., reduction="sum")`` on the same inputs;
+* K5 (``ops.fused_block_bwd.bwd_site``) in bfloat16 at every pointwise
+  site of resnet50 at 224 px and batch 256: device ms per call from a
+  graph replay of 5 calls, inputs drawn on the card from a fixed seed;
+* the train step of a full-width resnet50 (116 classes, random weights
+  from seed 0, ghost batch-norm over 64 rows, entropic loss, Adam at lr
+  1e-3, bfloat16, channels_last, batch 256 of device-resident uint8), in
+  the unfused form and with ``model.fused_blocks`` + ``boundary_mask``:
+  imgs/s over ``--steps`` steps by the host clock after three warm-up
+  steps, then ``torch.profiler`` over three steps for the device-busy ms
+  per step and, in the fused form, K5's device ms per step (its kernels:
+  ``site_*`` and ``reduce_partials``) and its launches of each kernel.
+
+Each turn prints one JSON line (``{"turn": ..., "root": ..., ...}``); the
+last lines are a table of every number by turn.  Without a CUDA device it
+exits non-zero.
+"""
+
+import argparse
+import collections
+import json
+import pathlib
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+# Every pointwise site of resnet50 at 224 px, batch 256: name, M, ci, co,
+# form (in_act, mask, ds, gp).
+SITES = [
+    ("stage1 tail", 802816, 64, 256, "tail"),
+    ("stage1 head b1", 802816, 64, 64, "head"),
+    ("stage1 head", 802816, 256, 64, "head_ds"),
+    ("stage2 head b1", 802816, 256, 128, "head"),
+    ("stage2 tail", 200704, 128, 512, "tail"),
+    ("stage2 head", 200704, 512, 128, "head_ds"),
+    ("stage3 head b1", 200704, 512, 256, "head"),
+    ("stage3 tail", 50176, 256, 1024, "tail"),
+    ("stage3 head", 50176, 1024, 256, "head_ds"),
+    ("stage4 head b1", 50176, 1024, 512, "head"),
+    ("stage4 tail", 12544, 512, 2048, "tail"),
+    ("stage4 head", 12544, 2048, 512, "head_ds"),
+]
+FORMS = {"tail": (True, True, False, True), "head_ds": (False, False, True,
+                                                         False),
+         "head": (False, False, False, False)}
+K5_NAME = re.compile(r"site_\w+|reduce_partials")
+BATCH = 256
+
+
+def graph_ms(torch, fn, calls, reps=10):
+    """Median device ms of one call, from a CUDA graph of ``calls``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def k3(torch, fl):
+    import numpy as np
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(0)
+    out = {}
+    for b, c in ((64, 117), (256, 117)):
+        logits = torch.from_numpy((rng.normal(size=(b, c)) * 3).astype(
+            np.float32)).cuda()
+        labels = torch.from_numpy(rng.integers(0, c, b).astype(np.int32)
+                                  ).cuda()
+        class_w = torch.from_numpy(rng.uniform(0.2, 2.0, c).astype(
+            np.float32)).cuda()
+        rows, labels64 = class_w[labels.long()], labels.long()
+        out[f"k3_us[{b},{c}]"] = 1e3 * graph_ms(
+            torch, lambda: fl.ce_sums(logits, labels, rows), 20)
+        out[f"cross_entropy_us[{b},{c}]"] = 1e3 * graph_ms(
+            torch, lambda: F.cross_entropy(logits, labels64, weight=class_w,
+                                           reduction="sum"), 20)
+    return out
+
+
+def k5(torch, fbb):
+    out = {}
+    for seed, (name, m, ci, co, form) in enumerate(SITES):
+        in_act, has_mask, has_ds, emit_gp = FORMS[form]
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        draw = lambda *s, dt=torch.bfloat16, scale=1.0: (torch.randn(
+            *s, generator=gen, device="cuda") * scale).to(dt)
+        mask = (torch.randint(0, 2, (m, co), generator=gen, device="cuda")
+                .to(torch.int8) if has_mask else None)
+        args = [draw(m, co), draw(m, co), mask, draw(m, ci),
+                draw(m, ci) if has_ds else None, draw(ci, co, scale=0.05),
+                draw(co, dt=torch.float32), draw(co, dt=torch.float32),
+                draw(ci, dt=torch.float32) if in_act else None,
+                draw(ci, dt=torch.float32) if in_act else None]
+        out[f"k5_ms[{name}]"] = graph_ms(
+            torch, lambda: fbb.bwd_site(*args, in_act=in_act,
+                                        emit_gp=emit_gp), 5)
+        del args, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def train(torch, fused, steps):
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.config import NameSpace
+    from openset_imagenet_tpu_torch.models.resnet import build_resnet
+
+    model = build_resnet("resnet50", fc_layer_dim=116, out_features=116,
+                         bn_stats_rows=64, fused_blocks=fused,
+                         boundary_mask=fused,
+                         generator=torch.Generator().manual_seed(0))
+    model = model.cuda().to(memory_format=torch.channels_last)
+    state = engine.create_state(model, engine.build_optimizer(
+        NameSpace({"type": "adam", "lr": 1e-3}), 1))
+    step = engine.make_train_step(engine.make_loss_fn("entropic",
+                                                      fused="auto"))
+    rng = np.random.default_rng(BATCH)
+    images = torch.from_numpy(rng.integers(0, 256, (BATCH, 224, 224, 3),
+                                           np.uint8)).cuda()
+    labels = torch.from_numpy(rng.integers(-1, 116, BATCH).astype(np.int32)
+                              ).cuda()
+    mask = torch.ones(BATCH, device="cuda")
+    for _ in range(3):
+        step(state, images, labels, mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(state, images, labels, mask)
+    torch.cuda.synchronize()
+    rate = BATCH * steps / (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step(state, images, labels, mask)
+        torch.cuda.synchronize()
+    busy, k5_us, k5_launches = 0.0, 0.0, collections.Counter()
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.time_range.elapsed_us()
+        busy += us
+        name = K5_NAME.search(evt.name)
+        if name:
+            k5_us += us
+            k5_launches[name.group(0)] += 1
+    form = "fused" if fused else "unfused"
+    out = {f"{form}_imgs_s": rate, f"{form}_busy_ms": busy / 3e3}
+    if fused:
+        out["k5_ms_per_step"] = k5_us / 3e3
+        out["k5_launches_per_step"] = {k: v / 3 for k, v in
+                                       sorted(k5_launches.items())}
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def one_turn(turn, root, steps):
+    sys.path.insert(0, str(root))
+    import torch
+
+    import openset_imagenet_tpu_torch as port
+
+    if not torch.cuda.is_available():
+        print("ab_torch_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    here = pathlib.Path(port.__file__).resolve()
+    if root.resolve() not in here.parents:
+        raise RuntimeError(f"imported {here}, not the port under {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
+    from openset_imagenet_tpu_torch.ops import fused_loss as fl
+
+    result = {"turn": turn, "root": str(root),
+              "device": torch.cuda.get_device_name(0)}
+    result.update(k3(torch, fl))
+    result.update(k5(torch, fbb))
+    result.update(train(torch, False, steps))
+    result.update(train(torch, True, steps))
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", required=True,
+                    help="the other checkout (its repository root)")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--turn", help=argparse.SUPPRESS)
+    ap.add_argument("--root", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.turn:
+        return one_turn(args.turn, pathlib.Path(args.root), args.steps)
+
+    parent = pathlib.Path(args.parent).resolve()
+    if not (parent / "openset_imagenet_tpu_torch").is_dir():
+        ap.error(f"{parent} holds no openset_imagenet_tpu_torch package")
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_torch_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True)
+    print(card.stdout.strip(), flush=True)
+    turns = []
+    for turn, root in (("parent", parent), ("change", REPO),
+                       ("change", REPO), ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--parent", str(parent), "--steps", str(args.steps),
+             "--turn", turn, "--root", str(root)],
+            cwd=root, capture_output=True, text=True)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if proc.returncode or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode or 1
+        turns.append(json.loads(lines[-1]))
+        print(lines[-1], flush=True)
+    keys = [k for k in turns[0] if k not in ("turn", "root", "device")]
+    print("metric".ljust(34) + "".join(t["turn"].rjust(14) for t in turns))
+    for key in keys:
+        cells = []
+        for t in turns:
+            v = t.get(key)
+            cells.append((f"{v:.4f}" if isinstance(v, float) else
+                          "-" if v is None else "dict").rjust(14))
+        print(key.ljust(34) + "".join(cells))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

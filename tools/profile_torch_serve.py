@@ -2,7 +2,7 @@
 """Where the PyTorch port's serving forward (or train step) spends its
 time on the GPU.
 
-    python tools/profile_torch_serve.py [--batch 64 256] [--train]
+    python tools/profile_torch_serve.py [--batch 64 256] [--train [--fused]]
                                         [--trace-dir chiprun_out]
 
 Builds a full-width two-head resnet50 (116 classes, random weights from
@@ -11,11 +11,14 @@ channels_last, CUDA), and runs the forward step (``train.
 make_forward_step``) on uint8 ``[B, 224, 224, 3]`` batches already on the
 card.  With ``--train`` it runs the train step instead (``train.
 make_train_step``: ghost batch-norm over 64 rows, the entropic loss
-through the Triton kernels, Adam at lr 1e-3).  For each batch size it
+through the Triton kernels, Adam at lr 1e-3); ``--fused`` adds
+``model.fused_blocks`` and ``model.boundary_mask``, so every pointwise
+backward site of the bottlenecks runs through K5 (the fused step of
+PERF.md; its kernels form the ``K5`` category).  For each batch size it
 prints the step's median milliseconds (CUDA events), then one
 ``torch.profiler`` window of five steps: device-busy time, the idle share
 of the window, kernel launches per step, and device time by kernel
-category and by kernel.  A Chrome trace per batch size goes to
+category and by kernel (every K5 kernel apart).  A Chrome trace per batch size goes to
 ``--trace-dir``.  Needs a CUDA device.
 """
 
@@ -35,6 +38,8 @@ TOP = 12
 
 # Kernel-name fragments -> category, first match wins.
 CATEGORIES = (
+    ("K5", ("site_fused", "site_rows", "site_dw", "site_gate",
+            "reduce_partials")),
     ("loss (Triton)", ("entropic_", "ce_fwd", "ce_bwd", "sum_partials")),
     ("optimizer", ("multi_tensor", "foreach")),
     ("pool", ("pool",)),
@@ -59,6 +64,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, nargs="+", default=[64, 256])
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the forward")
+    ap.add_argument("--fused", action="store_true",
+                    help="with --train: model.fused_blocks + boundary_mask "
+                         "(K5 at every pointwise backward site)")
     ap.add_argument("--trace-dir", default="chiprun_out")
     args = ap.parse_args(argv)
 
@@ -73,11 +81,15 @@ def main(argv=None):
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
     print(f"device {torch.cuda.get_device_name(0)}")
+    if args.fused and not args.train:
+        ap.error("--fused profiles the train step: add --train")
     model = build_resnet("resnet50", fc_layer_dim=116, out_features=116,
                          bn_stats_rows=64 if args.train else 0,
+                         fused_blocks=args.fused, boundary_mask=args.fused,
                          generator=torch.Generator().manual_seed(0))
     model = model.cuda().to(memory_format=torch.channels_last)
-    what = "train step" if args.train else "forward"
+    what = ("fused train step" if args.fused else
+            "train step" if args.train else "forward")
     if args.train:
         state = engine.create_state(model, engine.build_optimizer(
             NameSpace({"type": "adam", "lr": 1e-3}), 1))
@@ -122,7 +134,8 @@ def main(argv=None):
                 run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        name = "torch_train" if args.train else "torch_serve"
+        name = ("torch_train_fused" if args.fused else
+                "torch_train" if args.train else "torch_serve")
         prof.export_chrome_trace(str(trace_dir / f"{name}_b{b}.json"))
 
         by_kernel = collections.Counter()
@@ -152,6 +165,13 @@ def main(argv=None):
         for name, us in by_kernel.most_common(TOP):
             print(f"    {us / 1e3 / REPS:8.3f}  "
                   f"{launches[name] / REPS:5.0f}  {name[:110]}")
+        k5 = [(n, us) for n, us in by_kernel.most_common()
+              if category(n) == "K5"]
+        if k5:
+            print("  K5 kernels (ms/step, launches/step):")
+            for name, us in k5:
+                print(f"    {us / 1e3 / REPS:8.3f}  "
+                      f"{launches[name] / REPS:5.0f}  {name[:110]}")
     return 0
 
 
