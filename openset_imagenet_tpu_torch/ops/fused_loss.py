@@ -4,9 +4,10 @@ Counterpart of :mod:`openset_imagenet_tpu.ops.fused_loss`.  Four kernels,
 written by hand for Hopper in :mod:`.triton_fused_loss`:
 
 * ``entropic_fwd`` replaces the Pallas ``_fwd_kernel`` (K1): the entropic
-  open-set loss sums ``(sum_i (T_i * lse_i - t_dot_i) * mask_i, sum mask)``;
+  open-set loss sums ``(sum_i (T_i * lse_i - t_dot_i) * mask_i, sum mask)``
+  and their mean ``loss_sum / max(count, 1)``;
 * ``entropic_bwd`` replaces ``_bwd_kernel`` (K2): its logits gradient
-  ``(T * softmax - targets) * mask * scale``;
+  ``(T * softmax - targets) * mask * g / max(count, 1)``;
 * ``ce_fwd`` replaces ``_ce_fwd_kernel`` (K3): the weighted hard-target
   cross-entropy sums ``(sum_i r_i * (lse_i - l_{i,y}), sum r)`` behind both
   the softmax and the garbage loss;
@@ -14,10 +15,13 @@ written by hand for Hopper in :mod:`.triton_fused_loss`:
   scale``.
 
 The public losses are ``torch.autograd.Function``s in place of the JAX
-custom VJPs: the forward runs K1 or K3, the backward K2 or K4 with
-``scale = g / max(count, 1)`` (entropic) or ``g / max(sum r, 1e-12)``
-(weighted CE), and nothing flows to the count, the labels, the mask or the
-class weights.
+custom VJPs, and nothing flows to the count, the labels, the mask or the
+class weights.  The entropic loss is one launch each way: K1 writes the
+mean beside the sums, and K2 forms ``g / max(count, 1)`` from the
+cotangent and the saved count (both divisions correctly rounded, so the
+bits are those of torch's ``/``).  The weighted CE computes ``sum /
+max(sum r, 1e-12)`` and ``scale = g / max(sum r, 1e-12)`` in torch around
+K3 and K4.
 
 Routing is by the device of the tensors and nothing else: a CPU tensor
 goes to the plain version beside each kernel (``*_plain``, written out
@@ -26,10 +30,10 @@ missing Triton, a failed build or launch, or an argument the kernel does
 not take is an error, never a silent switch to the plain version.
 
 ``LAUNCHES`` counts kernel launches (one per call of a wrapper that
-launched, K1's two-stage sum included), so a run can show that its main
-path went through the kernels.  K3 is one launch per call: its programs
-take tickets from an int32 counter kept per device and stream
-(:func:`_ticket`), and the last one adds the partials.
+launched), so a run can show that its main path went through the kernels.
+K1 and K3 are one launch per call: their programs take tickets from an
+int32 counter kept per device and stream (:func:`_ticket`), and the last
+one adds the partials.
 """
 
 from __future__ import annotations
@@ -51,17 +55,21 @@ LAUNCHES = {"entropic_fwd": 0, "entropic_bwd": 0, "ce_fwd": 0,
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 # Widest row the one-pass kernels hold in registers.
 MAX_CLASSES = 8192
-# Elements of one [rows, BLOCK_C] tile; bounds registers per thread.
-_TILE_ELEMS = 2048
-# Programs of the first stage; a program loops over row tiles beyond this.
+# Elements of one program's [rows, BLOCK_C] row tile, by kernel.  At
+# C <= 128, 256 elements are two rows and one warp a program.  On an
+# NVIDIA H100 80GB HBM3 at 700 W such small programs took less time than
+# 2048-element tiles, for K3 at [64, 117] and [256, 117] (and than one
+# program holding every row) and for K2 at [256, 116] and [64, 116]:
+# chip_smoke.py times those grids side by side.  K1 takes K3's grid; K4
+# keeps 2048-element tiles.
+_TILE_ELEMS = {"entropic_fwd": 256, "ce_fwd": 256, "entropic_bwd": 256,
+              "ce_bwd": 2048}
+# Programs of a forward; a program loops over row tiles beyond this.
 _MAX_PROGRAMS = 1024
+# Partials the last program of a forward adds at a time.
 _SUM_BLOCK = 512
-# K3's row tile: at C <= 128 one or two rows, one warp a program.  On the
-# H100 such small programs and a ticket took less time at [64, 117] and
-# [256, 117] than 2048-element tiles or one program holding every row
-# (chip_smoke.py times the three grids side by side).
-_CE_TILE_ELEMS = 256
-# K3's ticket counters, one per (device index, stream); 0 between calls.
+# The forwards' ticket counters, one per (device index, stream); 0
+# between calls.
 _TICKETS: Dict[Tuple[int, int], Tensor] = {}
 
 
@@ -86,6 +94,13 @@ def entropic_sums_plain(logits: Tensor, labels: Tensor, mask: Tensor,
     return ((t_sum * lse - t_dot) * mask).sum(), mask.sum()
 
 
+def entropic_fwd_plain(logits: Tensor, labels: Tensor, mask: Tensor,
+                       unk_weight: float) -> Tuple[Tensor, Tensor, Tensor]:
+    """``(loss_sum, count, loss_sum / max(count, 1))``."""
+    loss_sum, count = entropic_sums_plain(logits, labels, mask, unk_weight)
+    return loss_sum, count, loss_sum / count.clamp(min=1.0)
+
+
 def ce_sums_plain(logits: Tensor, labels: Tensor, row_weights: Tensor
                   ) -> Tuple[Tensor, Tensor]:
     """``(sum_i r_i * (lse_i - l_{i,y}), sum r)``; labels clipped to
@@ -104,10 +119,12 @@ def _onehot(labels: Tensor, c: int, like: Tensor) -> Tensor:
 
 
 def entropic_grad_plain(logits: Tensor, labels: Tensor, mask: Tensor,
-                        scale: Tensor, unk_weight: float) -> Tensor:
-    """``(T * softmax(l) - targets) * mask * scale`` in the logits dtype:
-    one-hot targets and ``T = 1`` for ``label >= 0``, uniform ``w/C`` and
-    ``T = w`` for negative rows."""
+                        g: Tensor, count: Tensor, unk_weight: float
+                        ) -> Tensor:
+    """``(T * softmax(l) - targets) * mask * g / max(count, 1)`` in the
+    logits dtype: one-hot targets and ``T = 1`` for ``label >= 0``, uniform
+    ``w/C`` and ``T = w`` for negative rows."""
+    scale = g / count.clamp(min=1.0)
     lg = _promote(logits)
     c = lg.shape[-1]
     p = torch.softmax(lg, dim=-1)
@@ -170,22 +187,27 @@ def _use_kernel(logits: Tensor, labels: Tensor, rows: Tensor) -> bool:
     return True
 
 
-def _check_scale(scale: Tensor, logits: Tensor) -> None:
-    if scale.dtype != torch.float32 or scale.numel() != 1 or \
-            scale.device != logits.device:
-        raise ValueError(f"scale must be a 1-element float32 tensor on "
-                         f"{logits.device}, got {scale.dtype} "
-                         f"{tuple(scale.shape)} on {scale.device}")
+def _check_scalar(name: str, t: Tensor, logits: Tensor) -> None:
+    if t.dtype != torch.float32 or t.numel() != 1 or \
+            t.device != logits.device:
+        raise ValueError(f"{name} must be a 1-element float32 tensor on "
+                         f"{logits.device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
 
 
-def _tiling(c: int, tile_elems: int = _TILE_ELEMS) -> Tuple[int, int]:
+def _tiling(c: int, tile_elems: int) -> Tuple[int, int]:
     """(BLOCK_C, rows per tile): C padded to a power of two, and rows so a
     tile holds at most ``tile_elems`` elements (one row at least)."""
     block_c = max(16, 1 << (c - 1).bit_length())
     return block_c, max(1, min(128, tile_elems // block_c))
 
 
-def _grid(b: int, c: int, tile_elems: Optional[int] = _TILE_ELEMS
+def _warps(elems: int) -> int:
+    """Warps of a program holding a tile of ``elems`` elements."""
+    return 1 if elems <= 256 else 4 if elems <= 2048 else 8
+
+
+def _grid(b: int, c: int, tile_elems: Optional[int]
           ) -> Tuple[int, int, int, int]:
     """``(BLOCK_C, rows per tile, row tiles per program, programs)`` of a
     forward over ``[b, c]``: up to ``_MAX_PROGRAMS`` programs, each taking
@@ -193,76 +215,71 @@ def _grid(b: int, c: int, tile_elems: Optional[int] = _TILE_ELEMS
     (the last may run past ``b``, masked); ``tile_elems=None``: one
     program holding every row in one tile.
     """
+    block_c, tile_rows = _tiling(c, tile_elems or 1)
     if tile_elems is None:
-        return _tiling(c)[0], 1 << (b - 1).bit_length(), 1, 1
-    block_c, tile_rows = _tiling(c, tile_elems)
+        return block_c, 1 << (b - 1).bit_length(), 1, 1
     n_tiles = -(-b // tile_rows)
     tiles = -(-n_tiles // _MAX_PROGRAMS)
     return block_c, tile_rows, tiles, -(-n_tiles // tiles)
 
 
-def _launch(kernel: str, logits: Tensor, labels: Tensor, rows: Tensor,
-            *scalars) -> Tensor:
-    """First stage over row tiles, then the one-program fixed-order sum.
-
-    Returns a float32 ``[2]`` tensor ``(sum, weight)`` on the device.
-    """
-    k = _kernels()
-    b, c = logits.shape
-    block_c, tile_rows, tiles, grid = _grid(b, c)
-    partials = torch.empty((grid, 2), dtype=torch.float32,
-                           device=logits.device)
-    out = torch.empty(2, dtype=torch.float32, device=logits.device)
-    getattr(k, kernel)[(grid,)](
-        logits, labels, rows, partials, b, c, logits.stride(0), tiles,
-        *scalars, ROWS=tile_rows, BLOCK_C=block_c,
-        num_warps=4 if tile_rows * block_c <= _TILE_ELEMS else 8)
-    k.sum_partials[(1,)](partials, out, grid, BLOCK=_SUM_BLOCK, num_warps=4)
-    return out
-
-
 def _ticket(device: torch.device) -> Tensor:
     """The int32 ticket counter of the current stream on ``device``.
 
-    Made once with ``torch.zeros``; every K3 launch leaves it at 0 (its
-    last program resets it), so a call costs no launch to clear it.
+    Made once with ``torch.zeros``; every K1 or K3 launch leaves it at 0
+    (its last program resets it), so a call costs no launch to clear it.
+    One stream orders its launches, so K1 and K3 share its counter.  A
+    stream being captured into a CUDA graph must have called a forward
+    before the capture, so that no allocation lands in the graph.
     """
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     counter = _TICKETS.get(key)
     if counter is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "a loss forward in a CUDA-graph capture needs its ticket "
+                "counter made before the capture: call it once on the "
+                "capture stream first")
         counter = _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
                                               device=device)
     return counter
 
 
-def _ce_launch(logits: Tensor, labels: Tensor, rows: Tensor) -> Tensor:
-    """K3 in one launch; returns the float32 ``[2]`` ``(sum, weight)``."""
+def _fwd_launch(name: str, logits: Tensor, labels: Tensor, rows: Tensor,
+                n_out: int, *scalars) -> Tensor:
+    """K1 or K3 in one launch; returns its float32 ``[n_out]`` output."""
     k = _kernels()
     b, c = logits.shape
-    block_c, tile_rows, tiles, grid = _grid(b, c, _CE_TILE_ELEMS)
-    out = torch.empty(2, dtype=torch.float32, device=logits.device)
+    block_c, tile_rows, tiles, grid = _grid(b, c, _TILE_ELEMS[name])
+    out = torch.empty(n_out, dtype=torch.float32, device=logits.device)
     partials = out if grid == 1 else torch.empty(
         (grid, 2), dtype=torch.float32, device=logits.device)
-    elems = tile_rows * block_c
     # Only the kernel touches the counter, and its last program resets it:
     # a launch that raises here never ran, so the counter stays at 0.
-    k.ce_fwd_once[(grid,)](
+    getattr(k, f"{name}_once")[(grid,)](
         logits, labels, rows, partials, out, _ticket(logits.device), b, c,
-        logits.stride(0), tiles, grid - 1, ROWS=tile_rows, BLOCK_C=block_c,
-        SUM_BLOCK=_SUM_BLOCK,
-        num_warps=1 if elems <= 256 else 4 if elems <= 2048 else 8)
+        logits.stride(0), tiles, grid - 1, *scalars, ROWS=tile_rows,
+        BLOCK_C=block_c, SUM_BLOCK=_SUM_BLOCK,
+        num_warps=_warps(tile_rows * block_c))
+    LAUNCHES[name] += 1
     return out
+
+
+def entropic_fwd(logits: Tensor, labels: Tensor, mask: Tensor,
+                 unk_weight: float) -> Tuple[Tensor, Tensor, Tensor]:
+    """K1: ``(loss_sum, count, loss_sum / max(count, 1))``; one kernel
+    launch on CUDA, plain on CPU."""
+    if not _use_kernel(logits, labels, mask):
+        return entropic_fwd_plain(logits, labels, mask, unk_weight)
+    out = _fwd_launch("entropic_fwd", logits, labels, mask, 3,
+                      float(unk_weight))
+    return out[0], out[1], out[2]
 
 
 def entropic_sums(logits: Tensor, labels: Tensor, mask: Tensor,
                   unk_weight: float) -> Tuple[Tensor, Tensor]:
     """K1: ``(loss_sum, count)``; the kernel on CUDA, plain on CPU."""
-    if not _use_kernel(logits, labels, mask):
-        return entropic_sums_plain(logits, labels, mask, unk_weight)
-    out = _launch("entropic_fwd_partials", logits, labels, mask,
-                  float(unk_weight))
-    LAUNCHES["entropic_fwd"] += 1
-    return out[0], out[1]
+    return entropic_fwd(logits, labels, mask, unk_weight)[:2]
 
 
 def ce_sums(logits: Tensor, labels: Tensor, row_weights: Tensor
@@ -271,37 +288,40 @@ def ce_sums(logits: Tensor, labels: Tensor, row_weights: Tensor
     on CPU."""
     if not _use_kernel(logits, labels, row_weights):
         return ce_sums_plain(logits, labels, row_weights)
-    out = _ce_launch(logits, labels, row_weights)
-    LAUNCHES["ce_fwd"] += 1
+    out = _fwd_launch("ce_fwd", logits, labels, row_weights, 2)
     return out[0], out[1]
 
 
-def _launch_grad(kernel: str, logits: Tensor, labels: Tensor, rows: Tensor,
-                 scale: Tensor, *scalars) -> Tensor:
-    """One program per row tile; returns the ``[B, C]`` gradient."""
-    _check_scale(scale, logits)
+def _launch_grad(name: str, logits: Tensor, labels: Tensor, rows: Tensor,
+                 scalars: Dict[str, Tensor], *consts) -> Tensor:
+    """One program per row tile of ``_TILE_ELEMS[name]`` elements; returns
+    the ``[B, C]`` gradient.  ``scalars`` are the 1-element device tensors
+    the kernel reads, in its argument order."""
+    for arg, t in scalars.items():
+        _check_scalar(arg, t, logits)
     k = _kernels()
     b, c = logits.shape
-    block_c, tile_rows = _tiling(c)
+    block_c, tile_rows = _tiling(c, _TILE_ELEMS[name])
     grad = torch.empty_like(logits)
-    getattr(k, kernel)[(-(-b // tile_rows),)](
-        logits, labels, rows, scale, grad, b, c, logits.stride(0), *scalars,
-        ROWS=tile_rows, BLOCK_C=block_c,
-        num_warps=4 if tile_rows * block_c <= _TILE_ELEMS else 8)
+    getattr(k, name)[(-(-b // tile_rows),)](
+        logits, labels, rows, *scalars.values(), grad, b, c,
+        logits.stride(0), *consts, ROWS=tile_rows, BLOCK_C=block_c,
+        num_warps=_warps(tile_rows * block_c))
+    LAUNCHES[name] += 1
     return grad
 
 
-def entropic_grad(logits: Tensor, labels: Tensor, mask: Tensor,
-                  scale: Tensor, unk_weight: float) -> Tensor:
-    """K2: the entropic logits gradient; the kernel on CUDA, plain on
-    CPU."""
+def entropic_grad(logits: Tensor, labels: Tensor, mask: Tensor, g: Tensor,
+                  count: Tensor, unk_weight: float) -> Tensor:
+    """K2: the entropic logits gradient at ``g / max(count, 1)``; one
+    kernel launch on CUDA, plain on CPU.  A caller with a ready scale
+    passes it as ``g`` and a count of 1."""
     if not _use_kernel(logits, labels, mask):
-        return entropic_grad_plain(logits, labels, mask, scale, unk_weight)
-    grad = _launch_grad("entropic_bwd", logits, labels, mask, scale,
-                        float(unk_weight),
+        return entropic_grad_plain(logits, labels, mask, g, count,
+                                   unk_weight)
+    return _launch_grad("entropic_bwd", logits, labels, mask,
+                        {"g": g, "count": count}, float(unk_weight),
                         float(unk_weight) / logits.shape[1])
-    LAUNCHES["entropic_bwd"] += 1
-    return grad
 
 
 def ce_grad(logits: Tensor, labels: Tensor, row_weights: Tensor,
@@ -310,9 +330,8 @@ def ce_grad(logits: Tensor, labels: Tensor, row_weights: Tensor,
     CPU."""
     if not _use_kernel(logits, labels, row_weights):
         return ce_grad_plain(logits, labels, row_weights, scale)
-    grad = _launch_grad("ce_bwd", logits, labels, row_weights, scale)
-    LAUNCHES["ce_bwd"] += 1
-    return grad
+    return _launch_grad("ce_bwd", logits, labels, row_weights,
+                        {"scale": scale})
 
 
 # -- autograd (the JAX custom VJPs, fused_loss.py:269-341) -------------------
@@ -320,18 +339,21 @@ def ce_grad(logits: Tensor, labels: Tensor, row_weights: Tensor,
 class _EntropicFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels, mask, unk_weight):
-        loss_sum, count = entropic_sums(logits, labels, mask, unk_weight)
+        _, count, mean = entropic_fwd(logits, labels, mask, unk_weight)
         ctx.save_for_backward(logits, labels, mask, count)
         ctx.unk_weight = unk_weight
         ctx.mark_non_differentiable(count)
-        return loss_sum / count.clamp(min=1.0), count
+        # No zeros for the count's unused gradient: that is a fill launch.
+        ctx.set_materialize_grads(False)
+        return mean, count
 
     @staticmethod
     def backward(ctx, g_mean, _g_count):
+        if g_mean is None:   # an undefined cotangent: no gradient
+            return None, None, None, None
         logits, labels, mask, count = ctx.saved_tensors
-        scale = g_mean / count.clamp(min=1.0)
-        return (entropic_grad(logits, labels, mask, scale, ctx.unk_weight),
-                None, None, None)
+        return (entropic_grad(logits, labels, mask, g_mean, count,
+                              ctx.unk_weight), None, None, None)
 
 
 class _WeightedCEFused(torch.autograd.Function):

@@ -6,33 +6,36 @@ allocation, launch counts) lives in :mod:`.fused_loss`.
 
 Replaces (``openset_imagenet_tpu/ops/fused_loss.py``):
 
-* :func:`entropic_fwd_partials` -- ``_fwd_kernel`` via ``_fused_sums``.
-  Per row: max, log-sum-exp, the target dot (``l_y`` for known rows,
-  ``(w/C) * sum(l)`` for negative rows) and ``(T * lse - t_dot) * mask``.
+* :func:`entropic_fwd_once` -- ``_fwd_kernel`` via ``_fused_sums``, and
+  the division of the custom VJP's forward.  Per row: max, log-sum-exp,
+  the target dot (``l_y`` for known rows, ``(w/C) * sum(l)`` for negative
+  rows) and ``(T * lse - t_dot) * mask``; writes ``(loss_sum, count,
+  loss_sum / max(count, 1))``.
 * :func:`ce_fwd_once` -- ``_ce_fwd_kernel`` via ``_ce_sums``.  Per row:
-  ``r * (lse - l_y)`` with the label clipped to ``[0, C-1]``; the sum of
-  the partials in the same launch (below).
-* :func:`entropic_bwd` -- ``_bwd_kernel`` via ``_fused_grad``:
-  ``(T * softmax(l) - targets) * mask * scale``, targets one-hot for
-  ``label >= 0`` and uniform ``w/C`` otherwise (``T = 1`` or ``w``).
+  ``r * (lse - l_y)`` with the label clipped to ``[0, C-1]``.
+* :func:`entropic_bwd` -- ``_bwd_kernel`` via ``_fused_grad``, and the
+  division of the custom VJP's backward: ``(T * softmax(l) - targets) *
+  mask * g / max(count, 1)``, targets one-hot for ``label >= 0`` and
+  uniform ``w/C`` otherwise (``T = 1`` or ``w``).
 * :func:`ce_bwd` -- ``_ce_bwd_kernel`` via ``_ce_grad``:
   ``r * (softmax(l) - onehot) * scale`` with the label clipped.
 
-Forwards.  Bound on the card: bytes.  Each kernel reads the ``[B, C]`` float32 logits
-once (``4 * B * C`` bytes) plus 8-12 bytes a row, and writes two floats per
-program; there is no tensor-core work.  Design: one pass over each row
-block with C padded to the next power of two (masked lanes load ``-inf``
-for the max and count 0 in the sums), no ``[B, C]`` intermediate in device
-memory, and a deterministic sum of partials -- each program writes its
-partial ``(sum, weight)`` pair, and then K1 launches :func:`sum_partials`,
-one program that adds them in a fixed order, while K3
-(:func:`ce_fwd_once`) adds them in its own last program to finish, so
-its call is one launch: at the train step's shapes the second launch,
-not the bytes, set K3's time.  No float atomics, so two launches on the
-same input give the same bits, as the TPU's sequential grid does.  The row loop
-inside a program stands in for that sequential grid.  The TPU kernel's
-padding of B to 256-row blocks is not carried over: the ragged edge is
-masked in the kernel.
+Forwards.  Bound on the card: bytes.  Each kernel reads the ``[B, C]``
+float32 logits once (``4 * B * C`` bytes) plus 8-12 bytes a row, and
+writes two floats per program; there is no tensor-core work.  At the
+train step's shapes on the H100 the bytes take nanoseconds and a launch
+microseconds, so each call is one launch.  Design: small programs (two
+rows and one warp at C <= 128), one pass over each row tile with C padded
+to the next power of two (masked lanes load ``-inf`` for the max and
+count 0 in the sums), no ``[B, C]`` intermediate in device memory; each
+program writes its partial ``(sum, weight)`` pair, and the last program
+to finish adds them in index order in the same launch (:func:`_finish`).
+K1's last program also divides, so the entropic loss's mean needs no
+further launch.  No float atomics, so two launches on the same input give
+the same bits, as the TPU's sequential grid does.  The row loop inside a
+program stands in for that sequential grid.  The TPU kernel's padding of
+B to 256-row blocks is not carried over: the ragged edge is masked in the
+kernel.
 
 Backwards.  Each reads the ``[B, C]`` logits and writes the ``[B, C]``
 gradient once (``8 * B * C`` bytes, 240 KB at the train step's [256, 116])
@@ -40,10 +43,11 @@ plus a few bytes a row: at these shapes the launch, not the bytes, bounds
 them.  Design: one program per row tile, no cross-program state, so there
 is no second pass and two launches give the same bits.  Each program
 recomputes its rows' softmax from the logits (max, exp, row sum), as the
-TPU kernel does, instead of reading a saved log-sum-exp.  ``scale``
-(``g / count``, or ``g / sum r``) is read through a pointer to the
-1-element device tensor that autograd hands the backward, where the TPU
-kernel reads it from SMEM: a Python float would sync the host every step.
+TPU kernel does, instead of reading a saved log-sum-exp.  K2 reads the
+cotangent ``g`` and the count through pointers to the 1-element device
+tensors autograd holds and forms ``g / max(count, 1)`` itself, so the
+backward is one launch; K4 reads a ready ``scale``.  The TPU kernels read
+the scale from SMEM; a Python float would sync the host every step.
 The gradient is stored in the logits' dtype; the ragged last tile and the
 padded columns are masked on store.
 """
@@ -67,9 +71,61 @@ def _row_tile(logits_ptr, rows, n_rows, n_cols, row_stride,
 
 
 @triton.jit
-def entropic_fwd_partials(logits_ptr, labels_ptr, mask_ptr, part_ptr,
-                          n_rows, n_cols, row_stride, tiles, unk_weight,
-                          ROWS: tl.constexpr, BLOCK_C: tl.constexpr):
+def _store_sums(out_ptr, loss, weight, MEAN: tl.constexpr):
+    """``out = (loss, weight)``, and with ``MEAN`` also ``loss / max(weight,
+    1)``, divided with IEEE rounding as torch's ``/`` divides."""
+    tl.store(out_ptr, loss)
+    tl.store(out_ptr + 1, weight)
+    if MEAN:
+        tl.store(out_ptr + 2, tl.math.div_rn(loss, tl.maximum(weight, 1.0)))
+
+
+@triton.jit
+def _finish(loss, weight, pid, part_ptr, out_ptr, ticket_ptr, last,
+            SUM_BLOCK: tl.constexpr, MEAN: tl.constexpr):
+    """Add every program's ``(loss, weight)`` in one launch.
+
+    ``last`` is the grid size less one.  A grid of one program writes its
+    sums to ``out`` and takes no ticket.  Otherwise each program stores its
+    pair, passes a block barrier (every thread's store is issued before
+    the ticket), and takes a ticket from the int32 counter with an
+    acq_rel atomic at GPU scope.  The program that draws ``last`` reads
+    the partials through L2 (``.cg``: no stale L1 line), adds them in
+    index order, writes ``out`` and resets the counter to 0 for the next
+    launch or graph replay.  No float atomics: the same bits at any
+    program count and on every launch.
+    """
+    if last == 0:
+        _store_sums(out_ptr, loss, weight, MEAN)
+    else:
+        tl.store(part_ptr + pid * 2, loss)
+        tl.store(part_ptr + pid * 2 + 1, weight)
+        tl.debug_barrier()
+        ticket = tl.atomic_add(ticket_ptr, 1, sem="acq_rel", scope="gpu")
+        if ticket == last:
+            offs = tl.arange(0, SUM_BLOCK)
+            acc0 = tl.zeros([SUM_BLOCK], dtype=tl.float32)
+            acc1 = tl.zeros([SUM_BLOCK], dtype=tl.float32)
+            for start in range(0, last + 1, SUM_BLOCK):
+                idx = start + offs
+                ok = idx <= last
+                acc0 += tl.load(part_ptr + idx * 2, mask=ok, other=0.0,
+                                cache_modifier=".cg")
+                acc1 += tl.load(part_ptr + idx * 2 + 1, mask=ok, other=0.0,
+                                cache_modifier=".cg")
+            _store_sums(out_ptr, tl.sum(acc0, axis=0), tl.sum(acc1, axis=0),
+                        MEAN)
+            tl.store(ticket_ptr, 0)
+
+
+@triton.jit
+def entropic_fwd_once(logits_ptr, labels_ptr, mask_ptr, part_ptr, out_ptr,
+                      ticket_ptr, n_rows, n_cols, row_stride, tiles, last,
+                      unk_weight, ROWS: tl.constexpr, BLOCK_C: tl.constexpr,
+                      SUM_BLOCK: tl.constexpr):
+    """K1 in one launch: one partial ``(sum (T * lse - t_dot) * mask, sum
+    mask)`` per program; the last program to finish writes ``(loss_sum,
+    count, loss_sum / max(count, 1))`` (:func:`_finish`)."""
     pid = tl.program_id(0)
     cols = tl.arange(0, BLOCK_C)
     loss_acc = tl.zeros([ROWS], dtype=tl.float32)
@@ -89,8 +145,8 @@ def entropic_fwd_partials(logits_ptr, labels_ptr, mask_ptr, part_ptr,
         t_dot = tl.where(known, l_y, uniform_dot)
         loss_acc += tl.where(row_ok, (t_sum * lse - t_dot) * mask, 0.0)
         mask_acc += mask
-    tl.store(part_ptr + pid * 2, tl.sum(loss_acc, axis=0))
-    tl.store(part_ptr + pid * 2 + 1, tl.sum(mask_acc, axis=0))
+    _finish(tl.sum(loss_acc, axis=0), tl.sum(mask_acc, axis=0), pid,
+            part_ptr, out_ptr, ticket_ptr, last, SUM_BLOCK, True)
 
 
 @triton.jit
@@ -99,18 +155,8 @@ def ce_fwd_once(logits_ptr, labels_ptr, weight_ptr, part_ptr, out_ptr,
                 ROWS: tl.constexpr, BLOCK_C: tl.constexpr,
                 SUM_BLOCK: tl.constexpr):
     """K3 in one launch: one partial ``(sum r * (lse - l_y), sum r)`` per
-    program, then the last program to finish adds them in index order.
-
-    ``last`` is the grid size less one.  A grid of one program writes its
-    sums to ``out`` and takes no ticket.  Otherwise each program stores its
-    pair, passes a block barrier (every thread's store is issued before
-    the ticket), and takes a ticket from the int32 counter with an
-    acq_rel atomic at GPU scope.  The program that draws ``last`` reads
-    the partials through L2 (``.cg``: no stale L1 line), adds them in
-    index order as :func:`sum_partials` does, writes ``out`` and resets
-    the counter to 0 for the next launch or graph replay.  No float
-    atomics: the same bits at any program count and on every launch.
-    """
+    program; the last program to finish writes the two sums
+    (:func:`_finish`)."""
     pid = tl.program_id(0)
     cols = tl.arange(0, BLOCK_C)
     loss_acc = tl.zeros([ROWS], dtype=tl.float32)
@@ -127,45 +173,8 @@ def ce_fwd_once(logits_ptr, labels_ptr, weight_ptr, part_ptr, out_ptr,
                      axis=1)
         loss_acc += tl.where(row_ok, r * (lse - l_y), 0.0)
         w_acc += r
-    loss = tl.sum(loss_acc, axis=0)
-    weight = tl.sum(w_acc, axis=0)
-    if last == 0:
-        tl.store(out_ptr, loss)
-        tl.store(out_ptr + 1, weight)
-    else:
-        tl.store(part_ptr + pid * 2, loss)
-        tl.store(part_ptr + pid * 2 + 1, weight)
-        tl.debug_barrier()
-        ticket = tl.atomic_add(ticket_ptr, 1, sem="acq_rel", scope="gpu")
-        if ticket == last:
-            offs = tl.arange(0, SUM_BLOCK)
-            acc0 = tl.zeros([SUM_BLOCK], dtype=tl.float32)
-            acc1 = tl.zeros([SUM_BLOCK], dtype=tl.float32)
-            for start in range(0, last + 1, SUM_BLOCK):
-                idx = start + offs
-                ok = idx <= last
-                acc0 += tl.load(part_ptr + idx * 2, mask=ok, other=0.0,
-                                cache_modifier=".cg")
-                acc1 += tl.load(part_ptr + idx * 2 + 1, mask=ok, other=0.0,
-                                cache_modifier=".cg")
-            tl.store(out_ptr, tl.sum(acc0, axis=0))
-            tl.store(out_ptr + 1, tl.sum(acc1, axis=0))
-            tl.store(ticket_ptr, 0)
-
-
-@triton.jit
-def sum_partials(part_ptr, out_ptr, n_parts, BLOCK: tl.constexpr):
-    """One program: fixed-order sum of ``[n_parts, 2]`` partials."""
-    offs = tl.arange(0, BLOCK)
-    acc0 = tl.zeros([BLOCK], dtype=tl.float32)
-    acc1 = tl.zeros([BLOCK], dtype=tl.float32)
-    for start in range(0, n_parts, BLOCK):
-        idx = start + offs
-        ok = idx < n_parts
-        acc0 += tl.load(part_ptr + idx * 2, mask=ok, other=0.0)
-        acc1 += tl.load(part_ptr + idx * 2 + 1, mask=ok, other=0.0)
-    tl.store(out_ptr, tl.sum(acc0, axis=0))
-    tl.store(out_ptr + 1, tl.sum(acc1, axis=0))
+    _finish(tl.sum(loss_acc, axis=0), tl.sum(w_acc, axis=0), pid, part_ptr,
+            out_ptr, ticket_ptr, last, SUM_BLOCK, False)
 
 
 @triton.jit
@@ -183,9 +192,12 @@ def _softmax_tile(logits_ptr, rows, n_rows, n_cols, row_stride,
 
 
 @triton.jit
-def entropic_bwd(logits_ptr, labels_ptr, mask_ptr, scale_ptr, grad_ptr,
-                 n_rows, n_cols, row_stride, unk_weight, uniform,
+def entropic_bwd(logits_ptr, labels_ptr, mask_ptr, g_ptr, count_ptr,
+                 grad_ptr, n_rows, n_cols, row_stride, unk_weight, uniform,
                  ROWS: tl.constexpr, BLOCK_C: tl.constexpr):
+    """K2 at ``scale = g / max(count, 1)``, divided with IEEE rounding as
+    torch's ``/`` divides, so the gradient has the bits of one given that
+    scale from torch."""
     rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
     cols = tl.arange(0, BLOCK_C)
     row_ok = rows < n_rows
@@ -193,7 +205,7 @@ def entropic_bwd(logits_ptr, labels_ptr, mask_ptr, scale_ptr, grad_ptr,
                           BLOCK_C)
     labels = tl.load(labels_ptr + rows, mask=row_ok, other=0)
     mask = tl.load(mask_ptr + rows, mask=row_ok, other=0.0)
-    scale = tl.load(scale_ptr)
+    scale = tl.math.div_rn(tl.load(g_ptr), tl.maximum(tl.load(count_ptr), 1.0))
     known = labels >= 0
     onehot = (cols[None, :] == labels[:, None]).to(tl.float32)
     targets = tl.where(known[:, None], onehot, uniform)

@@ -9,6 +9,9 @@ tests/test_torch_cuda.py`` (``--noconftest``: the suite's conftest imports
 jax, which the GPU host need not have).  Tolerance: rtol 1e-5 on the sums
 (another summation order than torch's reductions), counts exact; the
 gradients (K2, K4) within rtol 1e-5, atol 1e-8, masked rows exactly 0.
+K1 and K3 are one launch per call and give the same bits over launches
+and graph replays; K1's mean and K2's in-kernel scale have the bits of
+torch's division.
 """
 
 import importlib.util
@@ -80,44 +83,138 @@ def test_two_launches_give_the_same_bits(cuda):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("b,c", [(64, 117), (256, 117), (1000, 1000),
-                                 (4099, 3)])
-def test_ce_is_one_launch_with_the_same_bits_every_time(cuda, b, c):
-    """K3: one kernel per call, the same bits over 50 launches and over
-    a CUDA-graph replay of 20 calls, and its ticket counter back at 0."""
+def _one_launch(kernel, cuda, b, c):
+    """``(call, plain)`` of the one-launch forward ``kernel`` on a batch."""
+    logits, labels, mask = _batch(cuda, b, c, seed=c)
+    if kernel == "ce_fwd":
+        weights = mask * torch.rand(b, device=cuda) + 0.1 * mask
+        return (lambda: fl.ce_sums(logits, labels, weights),
+                lambda: fl.ce_sums_plain(logits, labels, weights))
+    return (lambda: fl.entropic_fwd(logits, labels, mask, 0.5),
+            lambda: fl.entropic_fwd_plain(logits, labels, mask, 0.5))
+
+
+def _kernel_names(fn, calls):
+    """Device kernels ``calls`` calls of ``fn`` launch (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    logits, labels, mask = _batch(cuda, b, c, seed=c)
-    weights = mask * torch.rand(b, device=cuda) + 0.1 * mask
-    first = torch.stack(fl.ce_sums(logits, labels, weights))
-    _close(first, fl.ce_sums_plain(logits, labels, weights))
-    for _ in range(50):
-        assert torch.equal(torch.stack(fl.ce_sums(logits, labels, weights)),
-                           first)
     for _ in range(2):   # a first profiler window can come back empty
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                fl.ce_sums(logits, labels, weights)
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("kernel,b,c", [
+    ("ce_fwd", 64, 117), ("ce_fwd", 256, 117), ("ce_fwd", 1000, 1000),
+    ("ce_fwd", 4099, 3), ("entropic_fwd", 64, 116),
+    ("entropic_fwd", 256, 116), ("entropic_fwd", 1000, 1000),
+    ("entropic_fwd", 4099, 3)])
+def test_ce_is_one_launch_with_the_same_bits_every_time(cuda, kernel, b, c):
+    """K3 and K1: one kernel per call, the same bits over 50 launches and
+    over a CUDA-graph replay of 20 calls, and the ticket counter back at
+    0."""
+    call, plain = _one_launch(kernel, cuda, b, c)
+    first = torch.stack(call())
+    _close(first, plain())
+    for _ in range(50):
+        assert torch.equal(torch.stack(call()), first)
+    kernels = _kernel_names(call, 10)
     assert len(kernels) == 10, kernels
-    assert all("ce_fwd_once" in k for k in kernels), kernels
+    assert all(f"{kernel}_once" in k for k in kernels), kernels
+    # Warm the capture stream's ticket counter up before the capture.
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fl.ce_sums(logits, labels, weights)
-    torch.cuda.current_stream().wait_stream(side)
+        call()
+    counters = len(fl._TICKETS)
     graph, outs = torch.cuda.CUDAGraph(), []
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(20):
-            outs.append(fl.ce_sums(logits, labels, weights))
+            outs.append(call())
+    assert len(fl._TICKETS) == counters   # nothing allocated in the graph
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(torch.stack(o), first) for o in outs)
     assert all(int(t.item()) == 0 for t in fl._TICKETS.values())
+
+
+def _entropic_case(cuda, case):
+    b, c = {"p1": (64, 116), "train": (256, 116), "ragged": (1000, 1000),
+            "narrow": (4099, 3)}.get(case, (64, 116))
+    logits, labels, mask = _batch(cuda, b, c, seed=b + c + 1)
+    if case == "all_masked":
+        mask = torch.zeros_like(mask)
+    if case == "all_negative":
+        labels = -torch.ones_like(labels)
+    return logits, labels, mask
+
+
+ENTROPIC_CASES = ["p1", "train", "ragged", "narrow", "all_masked",
+                  "all_negative"]
+
+
+@pytest.mark.parametrize("case", ENTROPIC_CASES)
+def test_entropic_mean_is_bit_equal_to_torch_division(cuda, case):
+    """K1's in-kernel mean has the bits of ``sum / count.clamp(min=1)``."""
+    logits, labels, mask = _entropic_case(cuda, case)
+    loss_sum, count, mean = fl.entropic_fwd(logits, labels, mask, 0.5)
+    assert torch.equal(mean, loss_sum / count.clamp(min=1.0))
+    ref = fl.entropic_fwd_plain(logits, labels, mask, 0.5)
+    _close((loss_sum, count), ref)
+    np.testing.assert_allclose(float(mean), float(ref[2]), rtol=1e-5,
+                               atol=1e-6)
+    if case == "all_masked":
+        assert float(count) == 0 and float(mean) == 0
+
+
+@pytest.mark.parametrize("case", ENTROPIC_CASES)
+def test_entropic_grad_in_kernel_scale_is_bit_equal(cuda, case):
+    """K2 given (g, count) has the bits of K2 given the scale torch
+    computes from them, ``g / count.clamp(min=1)``, and a count of 1."""
+    logits, labels, mask = _entropic_case(cuda, case)
+    g = torch.tensor(0.37, device=cuda)
+    count = fl.entropic_sums(logits, labels, mask, 0.5)[1]
+    got = fl.entropic_grad(logits, labels, mask, g, count, 0.5)
+    given = fl.entropic_grad(logits, labels, mask, g / count.clamp(min=1.0),
+                             torch.ones((), device=cuda), 0.5)
+    assert torch.equal(got, given)
+    ref = fl.entropic_grad_plain(logits, labels, mask, g, count, 0.5)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-8)
+    assert bool((got[mask == 0] == 0).all())
+
+
+def test_entropic_loss_is_one_launch_each_way(cuda):
+    """The public entropic loss: forward + ``torch.autograd.grad`` launch
+    K1 then K2 and nothing else; the forward under ``inference_mode`` (the
+    eval step) launches K1 alone."""
+    logits, labels, mask = _batch(cuda, 256, 116, seed=3)
+    logits.requires_grad_()
+    cotangent = torch.tensor(0.37, device=cuda)
+    grads = []
+
+    def train():
+        mean, _ = fl.entropic_openset_loss_fused(logits, labels, mask, 0.5)
+        grads.append(torch.autograd.grad(mean, logits, cotangent)[0])
+
+    def evaluate():
+        with torch.inference_mode():
+            fl.entropic_openset_loss_fused(logits, labels, mask, 0.5)
+
+    kernels = _kernel_names(train, 1)
+    assert len(kernels) == 2, kernels
+    assert "entropic_fwd_once" in kernels[0] and "entropic_bwd" in \
+        kernels[1], kernels
+    kernels = _kernel_names(evaluate, 1)
+    assert len(kernels) == 1 and "entropic_fwd_once" in kernels[0], kernels
+    count = fl.entropic_sums(logits.detach(), labels, mask, 0.5)[1]
+    ref = fl.entropic_grad_plain(logits.detach(), labels, mask, cotangent,
+                                 count, 0.5)
+    torch.testing.assert_close(grads[-1], ref, rtol=1e-5, atol=1e-8)
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -159,11 +256,12 @@ def _scale(device, value=0.0123):
 @pytest.mark.parametrize("w", [1.0, 0.5])
 def test_entropic_grad_kernel_matches_plain(cuda, b, c, w):
     logits, labels, mask = _batch(cuda, b, c, seed=b + c)
+    one = torch.ones((), device=cuda)   # the scale given as g / 1
     before = fl.LAUNCHES["entropic_bwd"]
-    got = fl.entropic_grad(logits, labels, mask, _scale(cuda), w)
+    got = fl.entropic_grad(logits, labels, mask, _scale(cuda), one, w)
     assert fl.LAUNCHES["entropic_bwd"] == before + 1
-    again = fl.entropic_grad(logits, labels, mask, _scale(cuda), w)
-    ref = fl.entropic_grad_plain(logits, labels, mask, _scale(cuda), w)
+    again = fl.entropic_grad(logits, labels, mask, _scale(cuda), one, w)
+    ref = fl.entropic_grad_plain(logits, labels, mask, _scale(cuda), one, w)
     assert got.dtype == logits.dtype and got.shape == logits.shape
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-8)
     assert torch.equal(got, again)

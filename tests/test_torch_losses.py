@@ -204,6 +204,45 @@ def test_edge_gradients_match_jax(loss, case):
     assert np.all(got[mask == 0] == 0)
 
 
+@pytest.mark.parametrize("g", [1.0, 0.37])
+@pytest.mark.parametrize("case", ["p1", "all_masked", "all_negative",
+                                  "ragged"])
+def test_entropic_plain_mean_and_grad_match_jax_vjp(case, g):
+    """K1's and K2's plain versions as the kernels now compute them: the
+    forward with its mean, and the gradient from the cotangent and the
+    count, against the JAX fused loss and its custom VJP."""
+    b = 300 if case == "ragged" else 64   # 300: two 256-row JAX blocks
+    logits, labels, mask, _ = make_batch(b=b, c=116, seed=11)
+    if case == "all_masked":
+        mask = np.zeros_like(mask)
+    if case == "all_negative":
+        labels = -np.ones_like(labels)
+    lg, lb, mk = _t(logits, labels, mask)
+    loss_sum, count, mean = pfl.entropic_fwd_plain(lg, lb, mk, 0.5)
+    assert torch.equal(mean, loss_sum / count.clamp(min=1.0))
+    (jmean, jcount), vjp = jax.vjp(
+        lambda x: jfl.entropic_openset_loss_fused(
+            x, jnp.asarray(labels), jnp.asarray(mask), 0.5),
+        jnp.asarray(logits))
+    _check((mean, count), (jmean, jcount))
+    if case == "all_masked":
+        assert float(count) == 0 and float(mean) == 0
+    (ref,) = vjp((jnp.float32(g), jnp.float32(0)))
+    got = pfl.entropic_grad_plain(lg, lb, mk, torch.tensor(g), count, 0.5)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-6)
+    assert np.all(got.numpy()[mask == 0] == 0)
+    # The CPU wrappers and the autograd Function go through these plain
+    # versions: the same bits.
+    assert all(torch.equal(a, b) for a, b in zip(
+        pfl.entropic_fwd(lg, lb, mk, 0.5), (loss_sum, count, mean)))
+    x = lg.clone().requires_grad_()
+    fused_mean, _ = pfl.entropic_openset_loss_fused(x, lb, mk, 0.5)
+    (auto,) = torch.autograd.grad(fused_mean, x, torch.tensor(g))
+    assert torch.equal(fused_mean.detach(), mean) and torch.equal(auto, got)
+
+
 @pytest.mark.parametrize("loss", ["entropic", "softmax", "garbage"])
 def test_plain_backward_gradcheck(loss):
     logits, labels, mask, weights = make_batch(b=6, c=5, seed=3,

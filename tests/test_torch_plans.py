@@ -3,9 +3,9 @@
 What the wrappers decide before a launch, so that it can be held here
 where no kernel runs: the build key of a CUDA source (``ops/_build.py``
 hashes the source and the headers it includes), K5's route and the rows
-each block of its fused route walks (``ops/fused_block_bwd.py``), K3's
-grid and the ticket its last program draws (``ops/fused_loss.py``), and
-``train.build_model``'s default device.
+each block of its fused route walks (``ops/fused_block_bwd.py``), the
+grid of K1 and K3 and the ticket their last program draws
+(``ops/fused_loss.py``), and ``train.build_model``'s default device.
 """
 
 import pathlib
@@ -114,20 +114,32 @@ def test_ragged_sites_take_the_generic_route():
                      True, 132)[0] == "tiled"
 
 
-@pytest.mark.parametrize("b,c", [(64, 117), (256, 117), (1000, 1000),
-                                 (2, 8), (4099, 3), (200000, 16)])
-def test_k3_grid_and_tickets(b, c):
-    block_c, rows, tiles, grid = fl._grid(b, c, fl._CE_TILE_ELEMS)
+# The one-launch forwards and their main path's shapes: K1 (entropic,
+# 116 classes) and K3 (softmax / garbage, 117 with the garbage class).
+ONE_LAUNCH = {"entropic_fwd": {(64, 116), (256, 116)},
+              "ce_fwd": {(64, 117), (256, 117)}}
+
+
+@pytest.mark.parametrize("kernel", sorted(ONE_LAUNCH))
+@pytest.mark.parametrize("b,c", [(64, 117), (256, 117), (64, 116),
+                                 (256, 116), (1000, 1000), (2, 8), (4099, 3),
+                                 (200000, 16)])
+def test_k3_grid_and_tickets(kernel, b, c):
+    """K1's and K3's one-launch grid, and the ticket its last program
+    draws."""
+    tile_elems = fl._TILE_ELEMS[kernel]
+    block_c, rows, tiles, grid = fl._grid(b, c, tile_elems)
     assert block_c >= c and block_c & (block_c - 1) == 0
     assert rows & (rows - 1) == 0
-    assert rows * block_c <= max(fl._CE_TILE_ELEMS, block_c)
+    assert rows * block_c <= max(tile_elems, block_c)
     n_tiles = -(-b // rows)
     assert 1 <= grid <= fl._MAX_PROGRAMS
     assert grid * tiles >= n_tiles > (grid - 1) * tiles   # no idle program
     assert (grid == 1) == (b <= rows)   # one program draws no ticket
-    # The main path's shapes: one or two rows a program, one warp each.
-    if (b, c) in {(64, 117), (256, 117)}:
+    # The main path's shapes: two rows a program, one warp each.
+    if (b, c) in ONE_LAUNCH[kernel]:
         assert (rows, tiles, grid) == (2, 1, b // 2)
+        assert fl._warps(rows * block_c) == 1
     # The kernel is given last = grid - 1: the program that draws that
     # ticket adds every partial, each once, in index order.
     last = grid - 1
@@ -137,11 +149,18 @@ def test_k3_grid_and_tickets(b, c):
     # One program holding every row, the grid chip_smoke.py times beside.
     assert fl._grid(b, c, None) == (block_c, 1 << (b - 1).bit_length(), 1,
                                     1)
-    # K1 keeps its two-stage grid of _TILE_ELEMS tiles at every shape.
-    _, k1_rows, k1_tiles, k1_grid = fl._grid(b, c)
-    assert k1_rows * block_c <= max(fl._TILE_ELEMS, block_c)
-    k1_n = -(-b // k1_rows)
-    assert k1_grid * k1_tiles >= k1_n > (k1_grid - 1) * k1_tiles
+
+
+@pytest.mark.parametrize("b,c", [(256, 116), (64, 116), (1000, 1000),
+                                 (4099, 3)])
+def test_k2_programs_cover_every_row_once(b, c):
+    """K2's grid, chosen on the card: two-row programs of one warp at the
+    main path's 116 classes."""
+    block_c, rows = fl._tiling(c, fl._TILE_ELEMS["entropic_bwd"])
+    programs = -(-b // rows)
+    assert programs * rows >= b > (programs - 1) * rows
+    if c == 116:
+        assert (rows, programs, fl._warps(rows * block_c)) == (2, b // 2, 1)
 
 
 def test_build_model_defaults_to_the_card():

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""K3, K5 and the train step of two checkouts of the PyTorch port, in turns.
+"""The loss kernels, K5 and the train step of two checkouts of the PyTorch
+port, in turns.
 
     python tools/ab_torch_kernels.py --parent build/parent [--steps 10]
 
@@ -14,6 +15,14 @@ turn measures, on the card:
 * K3 (``ops.fused_loss.ce_sums``) at [64, 117] and [256, 117], float32
   logits: device µs per call from a CUDA-graph replay of 20 calls, beside
   ``F.cross_entropy(weight=..., reduction="sum")`` on the same inputs;
+* the entropic loss, float32 logits, labels from -1: K1 (``entropic_sums``)
+  at [64, 116] and [256, 116]; K2 (``entropic_grad``) at [256, 116], given
+  the cotangent and the count where the checkout's K2 takes them and the
+  scale torch computes from them where it takes a scale; and
+  ``entropic_openset_loss_fused`` forward + ``torch.autograd.grad`` at
+  [256, 116], the loss's whole train-step work: device µs per call from
+  graph replays of 20 calls, and the kernels one eager call launches
+  (``torch.profiler``);
 * K5 (``ops.fused_block_bwd.bwd_site``) in bfloat16 at every pointwise
   site of resnet50 at 224 px and batch 256: device ms per call from a
   graph replay of 5 calls, inputs drawn on the card from a fixed seed;
@@ -74,7 +83,8 @@ def graph_ms(torch, fn, calls, reps=10):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # Captured on the warmed stream: the forwards' ticket counters exist.
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -111,6 +121,50 @@ def k3(torch, fl):
         out[f"cross_entropy_us[{b},{c}]"] = 1e3 * graph_ms(
             torch, lambda: F.cross_entropy(logits, labels64, weight=class_w,
                                            reduction="sum"), 20)
+    return out
+
+
+def entropic(torch, fl):
+    import inspect
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(1)
+    out = {}
+    for b in (64, 256):
+        logits = torch.from_numpy((rng.normal(size=(b, 116)) * 3).astype(
+            np.float32)).cuda()
+        labels = torch.from_numpy(rng.integers(-1, 116, b).astype(np.int32)
+                                  ).cuda()
+        mask = torch.from_numpy((rng.random(b) > 0.2).astype(np.float32)
+                                ).cuda()
+        out[f"k1_us[{b},116]"] = 1e3 * graph_ms(
+            torch, lambda: fl.entropic_sums(logits, labels, mask, 0.5), 20)
+    g = torch.tensor(0.37, device="cuda")
+    count = mask.sum()
+    if "count" in inspect.signature(fl.entropic_grad).parameters:
+        args = (g, count)
+    else:   # a K2 that takes the scale torch computes
+        args = (g / count.clamp(min=1.0),)
+    out["k2_us[256,116]"] = 1e3 * graph_ms(
+        torch, lambda: fl.entropic_grad(logits, labels, mask, *args, 0.5),
+        20)
+    logits.requires_grad_()
+
+    def loss():
+        mean, _ = fl.entropic_openset_loss_fused(logits, labels, mask, 0.5)
+        return torch.autograd.grad(mean, logits, g)
+
+    out["entropic_loss_us[256,116]"] = 1e3 * graph_ms(torch, loss, 20)
+    for _ in range(2):   # a first profiler window can come back empty
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            loss()
+            torch.cuda.synchronize()
+    out["entropic_loss_launches"] = float(sum(
+        1 for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA))
     return out
 
 
@@ -212,6 +266,7 @@ def one_turn(turn, root, steps):
     result = {"turn": turn, "root": str(root),
               "device": torch.cuda.get_device_name(0)}
     result.update(k3(torch, fl))
+    result.update(entropic(torch, fl))
     result.update(k5(torch, fbb))
     result.update(train(torch, False, steps))
     result.update(train(torch, True, steps))

@@ -17,9 +17,11 @@ backward site of the bottlenecks runs through K5 (the fused step of
 PERF.md; its kernels form the ``K5`` category).  For each batch size it
 prints the step's median milliseconds (CUDA events), then one
 ``torch.profiler`` window of five steps: device-busy time, the idle share
-of the window, kernel launches per step, and device time by kernel
-category and by kernel (every K5 kernel apart).  A Chrome trace per batch size goes to
-``--trace-dir``.  Needs a CUDA device.
+of the window, kernel launches per step, device time by kernel category
+and by kernel (every K5 kernel apart), and the loss kernels' launches
+per step (K1 and K2 on the train step, where the entropic loss launches
+nothing else).  A Chrome trace per batch size goes
+to ``--trace-dir``.  Needs a CUDA device.
 """
 
 import argparse
@@ -40,7 +42,7 @@ TOP = 12
 CATEGORIES = (
     ("K5", ("site_fused", "site_rows", "site_dw", "site_gate",
             "reduce_partials")),
-    ("loss (Triton)", ("entropic_", "ce_fwd", "ce_bwd", "sum_partials")),
+    ("loss (Triton)", ("entropic_", "ce_fwd", "ce_bwd")),
     ("optimizer", ("multi_tensor", "foreach")),
     ("pool", ("pool",)),
     ("conv", ("fprop", "conv", "implicit", "xmma", "dgrad", "nchw", "nhwc")),
@@ -161,6 +163,11 @@ def main(argv=None):
         for cat, us in by_cat.most_common():
             print(f"  {cat:15s} {us / 1e3 / REPS:9.3f} ms/step "
                   f"{us / 1e3 / busy_ms:6.1%}")
+        loss = {n: k for n, k in launches.items()
+                if category(n) == "loss (Triton)"}
+        print(f"  loss kernel launches per step "
+              f"{sum(loss.values()) / REPS:.0f}: " + ", ".join(
+                  f"{n[:40]} {k / REPS:.0f}" for n, k in sorted(loss.items())))
         print(f"  top {TOP} kernels (ms/step, launches/step):")
         for name, us in by_kernel.most_common(TOP):
             print(f"    {us / 1e3 / REPS:8.3f}  "
