@@ -56,11 +56,12 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC; plain C entry points, bound with ctypes.
+// The Hopper primitives (mbarriers, TMA, wgmma, the swizzled layout) and
+// the tensor-map encoding are in csrc/hopper.cuh, shared with K6;
 // cuTensorMapEncodeTiled (libcuda) is looked up at run time
 // (cudaGetDriverEntryPoint), so the library needs no -lcuda.
 
-#include <cuda.h>
-
+#include "hopper.cuh"
 #include "site_common.cuh"
 
 namespace {
@@ -68,166 +69,6 @@ namespace {
 // site_gate: GR rows x GC channels per block (32 lanes x 8 channels).
 constexpr int GR = 64, GC = 256;
 
-// ---------------------------------------------------------------------------
-// Hopper primitives: shared-memory addresses, mbarriers, TMA, wgmma.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// Arrive once and expect `bytes` of asynchronous copies on `bar`.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// A barrier that does not complete within 2^26 polls (seconds) traps, so a
-// wrong byte count fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-// Generic-proxy writes to shared memory become visible to the async proxy
-// (wgmma operands, TMA stores, later TMA loads into the same bytes).
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// One box of a 2D tensor map (coordinates: column, row) into `dst`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int col, int row, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, int col,
-                                          int row, const void* src) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], "
-      "[%3];" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(col), "r"(row), "r"(smem_u32(src))
-      : "memory");
-}
-
-// `bytes` (a multiple of 16) contiguous bytes into `dst`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-// The committed stores have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-// The committed stores are complete.
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// Every group but the last committed one is complete.
-__device__ __forceinline__ void wgmma_wait_prev() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-}
-
-// Operand descriptor of a tile in the 128-byte-swizzled layout TMA writes:
-// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO).  K-major: the
-// start advances 32 bytes per 16-deep step inside a row.  MN-major (one
-// 64-wide atom per operand here): the start advances 2048 bytes (16 rows)
-// per step.  Atoms start on 1024-byte boundaries.
-__device__ __forceinline__ uint64_t desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-// Byte offset of 8-element granule `gran` (0..7) of row r inside a
-// 128-byte-swizzled atom.
-__device__ __forceinline__ int swz(int r, int gran) {
-  return r * 128 + ((gran ^ (r & 7)) << 4);
-}
-
-// Byte offset of element (r, c) of a [rows][C] tile stored as C/64 atoms of
-// [rows][64] (atom stride `atom` bytes).
-__device__ __forceinline__ int tile_off(int r, int c, int atom) {
-  return (c >> 6) * atom + swz(r, (c & 63) >> 3) + (c & 7) * 2;
-}
-
-// D[64 x N] += A * B, f32 accumulate, bf16 operands from shared memory.
-// TA / TB: 0 K-major, 1 MN-major.  Fragment of thread t of the warpgroup:
-// d[j*4 + h*2 + e] is row (t/32)*16 + (t%32)/4 + 8h, column j*8 + (t%4)*2 + e.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
 
 // ---------------------------------------------------------------------------
 // Route "generic" (and the tiled route's gate): the SIMT stages.
@@ -1094,47 +935,6 @@ site_dw_tc(const __grid_constant__ CUtensorMap mxa,
 // ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 [rows, cols] row-major tensor in boxes of 64 columns x box_rows
-// rows, 128-byte swizzle; elements outside the tensor read as zero and are
-// not written.
-bool make_map(CUtensorMap* map, const void* ptr, long long rows, int cols,
-              int box_rows) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 struct Site {
   const void *g, *z, *mask, *x, *ds, *w;

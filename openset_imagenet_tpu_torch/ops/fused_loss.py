@@ -10,18 +10,20 @@ written by hand for Hopper in :mod:`.triton_fused_loss`:
   ``(T * softmax - targets) * mask * g / max(count, 1)``;
 * ``ce_fwd`` replaces ``_ce_fwd_kernel`` (K3): the weighted hard-target
   cross-entropy sums ``(sum_i r_i * (lse_i - l_{i,y}), sum r)`` behind both
-  the softmax and the garbage loss;
+  the softmax and the garbage loss, and their mean ``loss_sum / max(sum r,
+  1e-12)``;
 * ``ce_bwd`` replaces ``_ce_bwd_kernel`` (K4): ``r * (softmax - onehot) *
-  scale``.
+  g / max(sum r, 1e-12)``.
 
 The public losses are ``torch.autograd.Function``s in place of the JAX
 custom VJPs, and nothing flows to the count, the labels, the mask or the
-class weights.  The entropic loss is one launch each way: K1 writes the
-mean beside the sums, and K2 forms ``g / max(count, 1)`` from the
-cotangent and the saved count (both divisions correctly rounded, so the
-bits are those of torch's ``/``).  The weighted CE computes ``sum /
-max(sum r, 1e-12)`` and ``scale = g / max(sum r, 1e-12)`` in torch around
-K3 and K4.
+class weights.  Both losses are one launch each way: K1 and K3 write the
+mean beside the sums, and K2 and K4 form ``g / max(count, 1)`` and ``g /
+max(sum r, 1e-12)`` from the cotangent and the saved count or weight sum
+(every division correctly rounded, so the bits are those of torch's
+``/``).  The row weights of the softmax and garbage losses (``(labels >=
+0) * mask``, ``class_weights[label] * mask``) are formed in torch before
+the Function, as the JAX package forms them.
 
 Routing is by the device of the tensors and nothing else: a CPU tensor
 goes to the plain version beside each kernel (``*_plain``, written out
@@ -60,10 +62,10 @@ MAX_CLASSES = 8192
 # NVIDIA H100 80GB HBM3 at 700 W such small programs took less time than
 # 2048-element tiles, for K3 at [64, 117] and [256, 117] (and than one
 # program holding every row) and for K2 at [256, 116] and [64, 116]:
-# chip_smoke.py times those grids side by side.  K1 takes K3's grid; K4
-# keeps 2048-element tiles.
+# chip_smoke.py times those grids side by side.  K1 takes K3's grid, K4
+# K2's.
 _TILE_ELEMS = {"entropic_fwd": 256, "ce_fwd": 256, "entropic_bwd": 256,
-              "ce_bwd": 2048}
+              "ce_bwd": 256}
 # Programs of a forward; a program loops over row tiles beyond this.
 _MAX_PROGRAMS = 1024
 # Partials the last program of a forward adds at a time.
@@ -101,6 +103,13 @@ def entropic_fwd_plain(logits: Tensor, labels: Tensor, mask: Tensor,
     return loss_sum, count, loss_sum / count.clamp(min=1.0)
 
 
+def ce_fwd_plain(logits: Tensor, labels: Tensor, row_weights: Tensor
+                 ) -> Tuple[Tensor, Tensor, Tensor]:
+    """``(loss_sum, wsum, loss_sum / max(wsum, 1e-12))``."""
+    loss_sum, wsum = ce_sums_plain(logits, labels, row_weights)
+    return loss_sum, wsum, loss_sum / wsum.clamp(min=1e-12)
+
+
 def ce_sums_plain(logits: Tensor, labels: Tensor, row_weights: Tensor
                   ) -> Tuple[Tensor, Tensor]:
     """``(sum_i r_i * (lse_i - l_{i,y}), sum r)``; labels clipped to
@@ -136,9 +145,10 @@ def entropic_grad_plain(logits: Tensor, labels: Tensor, mask: Tensor,
 
 
 def ce_grad_plain(logits: Tensor, labels: Tensor, row_weights: Tensor,
-                  scale: Tensor) -> Tensor:
-    """``r * (softmax(l) - onehot) * scale`` in the logits dtype; labels
-    clipped to ``[0, C-1]``."""
+                  g: Tensor, wsum: Tensor) -> Tensor:
+    """``r * (softmax(l) - onehot) * g / max(wsum, 1e-12)`` in the logits
+    dtype; labels clipped to ``[0, C-1]``."""
+    scale = g / wsum.clamp(min=1e-12)
     lg = _promote(logits)
     c = lg.shape[-1]
     p = torch.softmax(lg, dim=-1)
@@ -282,14 +292,21 @@ def entropic_sums(logits: Tensor, labels: Tensor, mask: Tensor,
     return entropic_fwd(logits, labels, mask, unk_weight)[:2]
 
 
+def ce_fwd(logits: Tensor, labels: Tensor, row_weights: Tensor
+           ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K3: ``(loss_sum, wsum, loss_sum / max(wsum, 1e-12))``; one kernel
+    launch on CUDA, plain on CPU."""
+    if not _use_kernel(logits, labels, row_weights):
+        return ce_fwd_plain(logits, labels, row_weights)
+    out = _fwd_launch("ce_fwd", logits, labels, row_weights, 3)
+    return out[0], out[1], out[2]
+
+
 def ce_sums(logits: Tensor, labels: Tensor, row_weights: Tensor
             ) -> Tuple[Tensor, Tensor]:
     """K3: ``(weighted nll sum, weight sum)``; the kernel on CUDA, plain
     on CPU."""
-    if not _use_kernel(logits, labels, row_weights):
-        return ce_sums_plain(logits, labels, row_weights)
-    out = _fwd_launch("ce_fwd", logits, labels, row_weights, 2)
-    return out[0], out[1]
+    return ce_fwd(logits, labels, row_weights)[:2]
 
 
 def _launch_grad(name: str, logits: Tensor, labels: Tensor, rows: Tensor,
@@ -324,14 +341,15 @@ def entropic_grad(logits: Tensor, labels: Tensor, mask: Tensor, g: Tensor,
                         float(unk_weight) / logits.shape[1])
 
 
-def ce_grad(logits: Tensor, labels: Tensor, row_weights: Tensor,
-            scale: Tensor) -> Tensor:
-    """K4: the weighted-CE logits gradient; the kernel on CUDA, plain on
-    CPU."""
+def ce_grad(logits: Tensor, labels: Tensor, row_weights: Tensor, g: Tensor,
+            wsum: Tensor) -> Tensor:
+    """K4: the weighted-CE logits gradient at ``g / max(wsum, 1e-12)``; one
+    kernel launch on CUDA, plain on CPU.  A caller with a ready scale
+    passes it as ``g`` and a weight sum of 1."""
     if not _use_kernel(logits, labels, row_weights):
-        return ce_grad_plain(logits, labels, row_weights, scale)
+        return ce_grad_plain(logits, labels, row_weights, g, wsum)
     return _launch_grad("ce_bwd", logits, labels, row_weights,
-                        {"scale": scale})
+                        {"g": g, "wsum": wsum})
 
 
 # -- autograd (the JAX custom VJPs, fused_loss.py:269-341) -------------------
@@ -359,16 +377,20 @@ class _EntropicFused(torch.autograd.Function):
 class _WeightedCEFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels, row_weights):
-        loss_sum, wsum = ce_sums(logits, labels, row_weights)
+        _, wsum, mean = ce_fwd(logits, labels, row_weights)
         ctx.save_for_backward(logits, labels, row_weights, wsum)
         ctx.mark_non_differentiable(wsum)
-        return loss_sum / wsum.clamp(min=1e-12), wsum
+        # No zeros for the weight sum's unused gradient: that is a fill.
+        ctx.set_materialize_grads(False)
+        return mean, wsum
 
     @staticmethod
     def backward(ctx, g_mean, _g_wsum):
+        if g_mean is None:   # an undefined cotangent: no gradient
+            return None, None, None
         logits, labels, row_weights, wsum = ctx.saved_tensors
-        scale = g_mean / wsum.clamp(min=1e-12)
-        return ce_grad(logits, labels, row_weights, scale), None, None
+        return (ce_grad(logits, labels, row_weights, g_mean, wsum), None,
+                None)
 
 
 # -- public losses (same (mean, count) contract as ops.losses) ---------------

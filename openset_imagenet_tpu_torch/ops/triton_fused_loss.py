@@ -11,14 +11,17 @@ Replaces (``openset_imagenet_tpu/ops/fused_loss.py``):
   the target dot (``l_y`` for known rows, ``(w/C) * sum(l)`` for negative
   rows) and ``(T * lse - t_dot) * mask``; writes ``(loss_sum, count,
   loss_sum / max(count, 1))``.
-* :func:`ce_fwd_once` -- ``_ce_fwd_kernel`` via ``_ce_sums``.  Per row:
-  ``r * (lse - l_y)`` with the label clipped to ``[0, C-1]``.
+* :func:`ce_fwd_once` -- ``_ce_fwd_kernel`` via ``_ce_sums``, and the
+  division of the custom VJP's forward.  Per row: ``r * (lse - l_y)`` with
+  the label clipped to ``[0, C-1]``; writes ``(loss_sum, wsum, loss_sum /
+  max(wsum, 1e-12))``.
 * :func:`entropic_bwd` -- ``_bwd_kernel`` via ``_fused_grad``, and the
   division of the custom VJP's backward: ``(T * softmax(l) - targets) *
   mask * g / max(count, 1)``, targets one-hot for ``label >= 0`` and
   uniform ``w/C`` otherwise (``T = 1`` or ``w``).
-* :func:`ce_bwd` -- ``_ce_bwd_kernel`` via ``_ce_grad``:
-  ``r * (softmax(l) - onehot) * scale`` with the label clipped.
+* :func:`ce_bwd` -- ``_ce_bwd_kernel`` via ``_ce_grad``, and the division
+  of the custom VJP's backward: ``r * (softmax(l) - onehot) * g / max(wsum,
+  1e-12)`` with the label clipped.
 
 Forwards.  Bound on the card: bytes.  Each kernel reads the ``[B, C]``
 float32 logits once (``4 * B * C`` bytes) plus 8-12 bytes a row, and
@@ -30,9 +33,10 @@ to the next power of two (masked lanes load ``-inf`` for the max and
 count 0 in the sums), no ``[B, C]`` intermediate in device memory; each
 program writes its partial ``(sum, weight)`` pair, and the last program
 to finish adds them in index order in the same launch (:func:`_finish`).
-K1's last program also divides, so the entropic loss's mean needs no
-further launch.  No float atomics, so two launches on the same input give
-the same bits, as the TPU's sequential grid does.  The row loop inside a
+The last program also divides (K1 by ``max(count, 1)``, K3 by
+``max(wsum, 1e-12)``), so neither loss's mean needs a further launch.  No
+float atomics, so two launches on the same input give the same bits, as
+the TPU's sequential grid does.  The row loop inside a
 program stands in for that sequential grid.  The TPU kernel's padding of
 B to 256-row blocks is not carried over: the ragged edge is masked in the
 kernel.
@@ -43,10 +47,11 @@ plus a few bytes a row: at these shapes the launch, not the bytes, bounds
 them.  Design: one program per row tile, no cross-program state, so there
 is no second pass and two launches give the same bits.  Each program
 recomputes its rows' softmax from the logits (max, exp, row sum), as the
-TPU kernel does, instead of reading a saved log-sum-exp.  K2 reads the
-cotangent ``g`` and the count through pointers to the 1-element device
-tensors autograd holds and forms ``g / max(count, 1)`` itself, so the
-backward is one launch; K4 reads a ready ``scale``.  The TPU kernels read
+TPU kernel does, instead of reading a saved log-sum-exp.  K2 and K4 read
+the cotangent ``g`` and the count (K4: the weight sum) through pointers to
+the 1-element device tensors autograd holds and form ``g / max(count, 1)``
+(K4: ``g / max(wsum, 1e-12)``) themselves, so each backward is one
+launch.  The TPU kernels read
 the scale from SMEM; a Python float would sync the host every step.
 The gradient is stored in the logits' dtype; the ragged last tile and the
 padded columns are masked on store.
@@ -71,18 +76,17 @@ def _row_tile(logits_ptr, rows, n_rows, n_cols, row_stride,
 
 
 @triton.jit
-def _store_sums(out_ptr, loss, weight, MEAN: tl.constexpr):
-    """``out = (loss, weight)``, and with ``MEAN`` also ``loss / max(weight,
-    1)``, divided with IEEE rounding as torch's ``/`` divides."""
+def _store_sums(out_ptr, loss, weight, FLOOR: tl.constexpr):
+    """``out = (loss, weight, loss / max(weight, FLOOR))``, divided with
+    IEEE rounding as torch's ``/`` divides."""
     tl.store(out_ptr, loss)
     tl.store(out_ptr + 1, weight)
-    if MEAN:
-        tl.store(out_ptr + 2, tl.math.div_rn(loss, tl.maximum(weight, 1.0)))
+    tl.store(out_ptr + 2, tl.math.div_rn(loss, tl.maximum(weight, FLOOR)))
 
 
 @triton.jit
 def _finish(loss, weight, pid, part_ptr, out_ptr, ticket_ptr, last,
-            SUM_BLOCK: tl.constexpr, MEAN: tl.constexpr):
+            SUM_BLOCK: tl.constexpr, FLOOR: tl.constexpr):
     """Add every program's ``(loss, weight)`` in one launch.
 
     ``last`` is the grid size less one.  A grid of one program writes its
@@ -96,7 +100,7 @@ def _finish(loss, weight, pid, part_ptr, out_ptr, ticket_ptr, last,
     program count and on every launch.
     """
     if last == 0:
-        _store_sums(out_ptr, loss, weight, MEAN)
+        _store_sums(out_ptr, loss, weight, FLOOR)
     else:
         tl.store(part_ptr + pid * 2, loss)
         tl.store(part_ptr + pid * 2 + 1, weight)
@@ -114,7 +118,7 @@ def _finish(loss, weight, pid, part_ptr, out_ptr, ticket_ptr, last,
                 acc1 += tl.load(part_ptr + idx * 2 + 1, mask=ok, other=0.0,
                                 cache_modifier=".cg")
             _store_sums(out_ptr, tl.sum(acc0, axis=0), tl.sum(acc1, axis=0),
-                        MEAN)
+                        FLOOR)
             tl.store(ticket_ptr, 0)
 
 
@@ -146,7 +150,7 @@ def entropic_fwd_once(logits_ptr, labels_ptr, mask_ptr, part_ptr, out_ptr,
         loss_acc += tl.where(row_ok, (t_sum * lse - t_dot) * mask, 0.0)
         mask_acc += mask
     _finish(tl.sum(loss_acc, axis=0), tl.sum(mask_acc, axis=0), pid,
-            part_ptr, out_ptr, ticket_ptr, last, SUM_BLOCK, True)
+            part_ptr, out_ptr, ticket_ptr, last, SUM_BLOCK, 1.0)
 
 
 @triton.jit
@@ -155,8 +159,8 @@ def ce_fwd_once(logits_ptr, labels_ptr, weight_ptr, part_ptr, out_ptr,
                 ROWS: tl.constexpr, BLOCK_C: tl.constexpr,
                 SUM_BLOCK: tl.constexpr):
     """K3 in one launch: one partial ``(sum r * (lse - l_y), sum r)`` per
-    program; the last program to finish writes the two sums
-    (:func:`_finish`)."""
+    program; the last program to finish writes ``(loss_sum, wsum, loss_sum
+    / max(wsum, 1e-12))`` (:func:`_finish`)."""
     pid = tl.program_id(0)
     cols = tl.arange(0, BLOCK_C)
     loss_acc = tl.zeros([ROWS], dtype=tl.float32)
@@ -174,7 +178,7 @@ def ce_fwd_once(logits_ptr, labels_ptr, weight_ptr, part_ptr, out_ptr,
         loss_acc += tl.where(row_ok, r * (lse - l_y), 0.0)
         w_acc += r
     _finish(tl.sum(loss_acc, axis=0), tl.sum(w_acc, axis=0), pid, part_ptr,
-            out_ptr, ticket_ptr, last, SUM_BLOCK, False)
+            out_ptr, ticket_ptr, last, SUM_BLOCK, 1e-12)
 
 
 @triton.jit
@@ -216,9 +220,12 @@ def entropic_bwd(logits_ptr, labels_ptr, mask_ptr, g_ptr, count_ptr,
 
 
 @triton.jit
-def ce_bwd(logits_ptr, labels_ptr, weight_ptr, scale_ptr, grad_ptr,
+def ce_bwd(logits_ptr, labels_ptr, weight_ptr, g_ptr, wsum_ptr, grad_ptr,
            n_rows, n_cols, row_stride,
            ROWS: tl.constexpr, BLOCK_C: tl.constexpr):
+    """K4 at ``scale = g / max(wsum, 1e-12)``, divided with IEEE rounding
+    as torch's ``/`` divides, so the gradient has the bits of one given
+    that scale from torch."""
     rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
     cols = tl.arange(0, BLOCK_C)
     row_ok = rows < n_rows
@@ -227,7 +234,8 @@ def ce_bwd(logits_ptr, labels_ptr, weight_ptr, scale_ptr, grad_ptr,
     labels = tl.load(labels_ptr + rows, mask=row_ok, other=0)
     labels = tl.minimum(tl.maximum(labels, 0), n_cols - 1)
     r = tl.load(weight_ptr + rows, mask=row_ok, other=0.0)
-    scale = tl.load(scale_ptr)
+    scale = tl.math.div_rn(tl.load(g_ptr),
+                           tl.maximum(tl.load(wsum_ptr), 1e-12))
     onehot = (cols[None, :] == labels[:, None]).to(tl.float32)
     grad = (p - onehot) * (r * scale)[:, None]
     ptrs = grad_ptr + rows[:, None].to(tl.int64) * n_cols + cols[None, :]

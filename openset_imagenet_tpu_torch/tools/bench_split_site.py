@@ -30,8 +30,10 @@ fails, or a result that is not finite, ends the tool with an error.
 
 On the card each line also holds each kernel's device ms per site call
 (``kernel_ms_per_site``), from one more eager run under
-``torch.profiler``: K6's four kernels and their reductions apart, beside
-each K6 kernel's own bound (``stage_bound_ms``, from its bytes).
+``torch.profiler``: K6's four kernels and its reduction apart.  The split
+case adds each stage's own bound (``stage_bound_ms``, from its bytes), its
+kernel's ms (``stage_ms``: k2 and k4 on either route) and the share of the
+bound that kernel reaches (``stage_share``), and K6's route.
 ``--device cpu`` runs the same cases through the plain versions on the
 host (for a check of the tool; its times are the host's).
 """
@@ -75,6 +77,15 @@ def stage_bytes(m: int, ci: int, co: int, itemsize: int = 2) -> dict:
             "k2_dxa": m * (2 * co + ci) * itemsize,
             "k3_dx": 3 * m * ci * itemsize,
             "k4_dw": m * (co + ci) * itemsize}
+
+
+def stage_of(kernel: str) -> Optional[str]:
+    """The split stage a K6 kernel's profiled name belongs to (both routes'
+    k2 and k4), or None."""
+    for stage in ("k1_gate", "k2_dxa", "k3_dx", "k4_dw"):
+        if kernel.startswith(stage):
+            return stage
+    return None
 
 
 def function_bytes(m: int, ci: int, co: int, itemsize: int = 2) -> int:
@@ -190,6 +201,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         ms /= CHAIN
         per_kernel = kernel_ms(run) if card else None
         nb = site_bytes(m, ci, co, split)
+        stage_bound = ({k: _card.bound_ms(b)[0] for k, b in
+                        stage_bytes(m, ci, co).items()} if split else None)
+        stage_ms = None
+        if split and per_kernel:
+            stage_ms = {}
+            for kernel, kms in per_kernel.items():
+                if stage_of(kernel):
+                    stage_ms[stage_of(kernel)] = \
+                        stage_ms.get(stage_of(kernel), 0.0) + kms
         print(json.dumps({
             "case": case, "ms_per_site": ms, "nominal_gb": nb / 1e9,
             "gb_per_s": nb / (ms / 1e3) / 1e9, "bound_ms": bound,
@@ -200,9 +220,14 @@ def main(argv: Optional[List[str]] = None) -> int:
             "launches": {k: v - before[k] for c in counters
                          for k, v in c.items()},
             "kernel_ms_per_site": per_kernel,
-            "stage_bound_ms": ({k: _card.bound_ms(b)[0] for k, b in
-                                stage_bytes(m, ci, co).items()}
-                               if split else None),
+            "stage_bound_ms": stage_bound,
+            "stage_ms": stage_ms,
+            "stage_share": ({k: stage_bound[k] / v for k, v in
+                             stage_ms.items()} if stage_ms else None),
+            "route": (split_site._plan(m, ci, co, torch.bfloat16, True,
+                                       fbb._sm_count(device.index or 0)
+                                       ).route
+                      if split and card else None),
             "device": name,
             "card": card}), flush=True)
     return 0

@@ -10,8 +10,8 @@ jax, which the GPU host need not have).  Tolerance: rtol 1e-5 on the sums
 (another summation order than torch's reductions), counts exact; the
 gradients (K2, K4) within rtol 1e-5, atol 1e-8, masked rows exactly 0.
 K1 and K3 are one launch per call and give the same bits over launches
-and graph replays; K1's mean and K2's in-kernel scale have the bits of
-torch's division.
+and graph replays; K1's and K3's means and K2's and K4's in-kernel scales
+have the bits of torch's division.
 """
 
 import importlib.util
@@ -95,17 +95,26 @@ def _one_launch(kernel, cuda, b, c):
 
 
 def _kernel_names(fn, calls):
-    """Device kernels ``calls`` calls of ``fn`` launch (torch.profiler)."""
+    """Device kernels ``calls`` calls of ``fn`` launch (torch.profiler).
+    A window can miss its first launch, so each opens with a marker kernel
+    (``torch.cuda._sleep``, left out of the names); and a window can come
+    back empty, so the fullest of three counts (a window never holds a
+    kernel that did not run)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):   # a first profiler window can come back empty
+    names = []
+    for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        window = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.name]
+        names = max(names, window, key=len)
+    return names
 
 
 @pytest.mark.parametrize("kernel,b,c", [
@@ -217,6 +226,103 @@ def test_entropic_loss_is_one_launch_each_way(cuda):
     torch.testing.assert_close(grads[-1], ref, rtol=1e-5, atol=1e-8)
 
 
+def _ce_case(cuda, case):
+    """A softmax or garbage batch and its row weights, as the public
+    losses form them."""
+    b, c = {"softmax": (64, 116), "garbage": (64, 117),
+            "train": (256, 117), "ragged": (1000, 1000),
+            "narrow": (4099, 3)}.get(case, (64, 117))
+    low = -1 if case in ("softmax", "all_ignored") else 0
+    logits, labels, mask = _batch(cuda, b, c, seed=b + c + 2, low=low)
+    if case == "all_masked":
+        mask = torch.zeros_like(mask)
+    if case == "all_ignored":
+        labels = -torch.ones_like(labels)
+    if case in ("softmax", "all_ignored"):
+        return logits, labels, (labels >= 0).float() * mask
+    class_w = torch.rand(c, device=cuda) + 0.2
+    return logits, labels, class_w[labels.long().clamp(0, c - 1)] * mask
+
+
+CE_CASES = ["softmax", "garbage", "train", "ragged", "narrow", "all_masked",
+            "all_ignored"]
+
+
+@pytest.mark.parametrize("case", CE_CASES)
+def test_ce_mean_is_bit_equal_to_torch_division(cuda, case):
+    """K3's in-kernel mean has the bits of ``sum / wsum.clamp(min=1e-12)``."""
+    logits, labels, rows = _ce_case(cuda, case)
+    loss_sum, wsum, mean = fl.ce_fwd(logits, labels, rows)
+    assert torch.equal(mean, loss_sum / wsum.clamp(min=1e-12))
+    ref = fl.ce_fwd_plain(logits, labels, rows)
+    _close((loss_sum, wsum), ref)
+    np.testing.assert_allclose(float(mean), float(ref[2]), rtol=1e-5,
+                               atol=1e-6)
+    if case in ("all_masked", "all_ignored"):
+        assert float(wsum) == 0 and float(mean) == 0
+
+
+@pytest.mark.parametrize("case", CE_CASES)
+def test_ce_grad_in_kernel_scale_is_bit_equal(cuda, case):
+    """K4 given (g, wsum) has the bits of K4 given the scale torch computes
+    from them, ``g / wsum.clamp(min=1e-12)``, and a weight sum of 1."""
+    logits, labels, rows = _ce_case(cuda, case)
+    g = torch.tensor(0.37, device=cuda)
+    wsum = fl.ce_sums(logits, labels, rows)[1]
+    got = fl.ce_grad(logits, labels, rows, g, wsum)
+    given = fl.ce_grad(logits, labels, rows, g / wsum.clamp(min=1e-12),
+                       torch.ones((), device=cuda))
+    assert torch.equal(got, given)
+    ref = fl.ce_grad_plain(logits, labels, rows, g, wsum)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-8)
+    assert bool((got[rows == 0] == 0).all())
+
+
+@pytest.mark.parametrize("loss", ["softmax", "garbage"])
+def test_weighted_ce_is_one_launch_each_way(cuda, loss):
+    """The public softmax and garbage losses: forward + ``autograd.grad``
+    launch K3 then K4 beside the row weights' own elementwise kernels,
+    which run before the loss (formed as the JAX package forms them, and
+    counted apart here); the forward under ``inference_mode`` launches the
+    row weights' kernels and K3."""
+    c = 116 if loss == "softmax" else 117
+    logits, labels, mask = _batch(cuda, 64, c, seed=4,
+                                  low=-1 if loss == "softmax" else 0)
+    class_w = torch.rand(c, device=cuda) + 0.2
+    logits.requires_grad_()
+    cotangent = torch.tensor(0.37, device=cuda)
+    fn = (lambda: fl.softmax_loss_fused(logits, labels, mask)
+          if loss == "softmax"
+          else fl.garbage_loss_fused(logits, labels, class_w, mask))
+    grads = []
+
+    def train():
+        mean, _ = fn()
+        grads.append(torch.autograd.grad(mean, logits, cotangent)[0])
+
+    def evaluate():
+        with torch.inference_mode():
+            fn()
+
+    kernels = _kernel_names(train, 1)
+    loss_kernels = [k for k in kernels if "ce_fwd_once" in k or "ce_bwd" in k]
+    assert len(loss_kernels) == 2 and "ce_fwd_once" in loss_kernels[0] and \
+        "ce_bwd" in loss_kernels[1], kernels
+    # Nothing after K3 but K4: the mean and the scale are the kernels' own.
+    assert kernels[kernels.index(loss_kernels[0]) + 1:] == \
+        loss_kernels[1:], kernels
+    eval_kernels = _kernel_names(evaluate, 1)
+    assert "ce_fwd_once" in eval_kernels[-1], eval_kernels
+    assert sum("ce_" in k for k in eval_kernels) == 1, eval_kernels
+    # The row weights' own kernels, the same count each way.
+    assert len(kernels) - 2 == len(eval_kernels) - 1, (kernels, eval_kernels)
+    rows = ((labels >= 0).float() * mask if loss == "softmax" else
+            class_w[labels.long()] * mask)
+    wsum = rows.sum()
+    ref = fl.ce_grad_plain(logits.detach(), labels, rows, cotangent, wsum)
+    torch.testing.assert_close(grads[-1], ref, rtol=1e-5, atol=1e-8)
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     logits, labels, mask = _batch(cuda, 16, 10)
     with pytest.raises(TypeError, match="float32"):
@@ -228,8 +334,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="classes"):
         wide = torch.zeros(2, fl.MAX_CLASSES + 1, device=cuda)
         fl.ce_sums(wide, labels[:2], mask[:2])
-    with pytest.raises(ValueError, match="scale"):
-        fl.ce_grad(logits, labels, mask, torch.ones(1, device=cuda).double())
+    with pytest.raises(ValueError, match="g must be"):
+        fl.ce_grad(logits, labels, mask, torch.ones(1, device=cuda).double(),
+                   torch.ones(1, device=cuda))
 
 
 @pytest.mark.parametrize("loss", ["entropic", "softmax", "garbage"])
@@ -273,10 +380,11 @@ def test_entropic_grad_kernel_matches_plain(cuda, b, c, w):
 def test_ce_grad_kernel_matches_plain(cuda, b, c):
     logits, labels, mask = _batch(cuda, b, c, seed=b)
     weights = mask * torch.rand(b, device=cuda) + 0.1 * mask
+    one = torch.ones((), device=cuda)   # the scale given as g / 1
     before = fl.LAUNCHES["ce_bwd"]
-    got = fl.ce_grad(logits, labels.long(), weights, _scale(cuda))
+    got = fl.ce_grad(logits, labels.long(), weights, _scale(cuda), one)
     assert fl.LAUNCHES["ce_bwd"] == before + 1
-    ref = fl.ce_grad_plain(logits, labels.long(), weights, _scale(cuda))
+    ref = fl.ce_grad_plain(logits, labels.long(), weights, _scale(cuda), one)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-8)
     assert bool((got[weights == 0] == 0).all())
 
@@ -570,6 +678,24 @@ def _rel_norm(a, b):
                                    (4096, 256, 64), (3000, 512, 2048)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k6_kernel_matches_plain_and_k5(cuda_k5, dtype, shape):
+    _k6_matches_plain_and_k5(cuda_k5, dtype, shape)
+
+
+# The four resnet50 tail widths (ci, co) at a reduced, ragged M.
+@pytest.mark.parametrize("ci,co", [(64, 256), (128, 512), (256, 1024),
+                                   (512, 2048)])
+def test_k6_tensor_core_route_at_every_resnet50_tail_width(cuda_k5, ci, co):
+    from openset_imagenet_tpu_torch.experimental import split_site as ss
+    from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
+
+    m = 4096 + 77
+    assert ss._plan(m, ci, co, torch.bfloat16, True,
+                    fbb._sm_count(cuda_k5.index or 0)).route == \
+        "tensor_cores"
+    _k6_matches_plain_and_k5(cuda_k5, torch.bfloat16, (m, ci, co))
+
+
+def _k6_matches_plain_and_k5(cuda_k5, dtype, shape):
     from openset_imagenet_tpu_torch.experimental import split_site as ss
     from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
 

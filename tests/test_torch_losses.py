@@ -243,6 +243,60 @@ def test_entropic_plain_mean_and_grad_match_jax_vjp(case, g):
     assert torch.equal(fused_mean.detach(), mean) and torch.equal(auto, got)
 
 
+@pytest.mark.parametrize("g", [1.0, 0.37])
+@pytest.mark.parametrize("case", ["softmax", "garbage", "all_zero_weights",
+                                  "all_ignored", "ragged"])
+def test_weighted_ce_plain_mean_and_grad_match_jax_vjp(case, g):
+    """K3's and K4's plain versions as the kernels now compute them: the
+    forward with its mean over ``max(wsum, 1e-12)``, and the gradient from
+    the cotangent and the weight sum, against the JAX ``_weighted_ce_fused``
+    and its custom VJP, behind the softmax and the garbage loss."""
+    b = 300 if case == "ragged" else 64   # 300: two 256-row JAX blocks
+    logits, labels, mask, weights = make_batch(b=b, c=117, seed=13)
+    garbage = case in ("garbage", "ragged")
+    if garbage:
+        labels = np.abs(labels)
+    if case == "all_zero_weights":   # every weight 0: the 1e-12 floor
+        mask = np.zeros_like(mask)
+    if case == "all_ignored":
+        labels = -np.ones_like(labels)
+    lg, lb, mk, wt = _t(logits, labels, mask, weights)
+    row_w = (wt[lb.long().clamp(0, 116)] * mk if garbage
+             else (lb >= 0).float() * mk)
+    jrow = (jnp.asarray(weights)[jnp.clip(jnp.asarray(labels), 0, 116)]
+            * jnp.asarray(mask) if garbage
+            else (jnp.asarray(labels) >= 0).astype(jnp.float32)
+            * jnp.asarray(mask))
+    np.testing.assert_array_equal(row_w.numpy(), np.asarray(jrow))
+    loss_sum, wsum, mean = pfl.ce_fwd_plain(lg, lb, row_w)
+    assert torch.equal(mean, loss_sum / wsum.clamp(min=1e-12))
+    (jmean, jwsum), vjp = jax.vjp(
+        lambda x: jfl._weighted_ce_fused(x, jnp.asarray(labels), jrow),
+        jnp.asarray(logits))
+    _check((mean, wsum), (jmean, jwsum), "garbage")
+    if case in ("all_zero_weights", "all_ignored"):
+        assert float(wsum) == 0 and float(mean) == 0
+    (ref,) = vjp((jnp.float32(g), jnp.float32(0)))
+    got = pfl.ce_grad_plain(lg, lb, row_w, torch.tensor(g), wsum)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-6)
+    assert np.all(got.numpy()[row_w.numpy() == 0] == 0)
+    # A ready scale given as g with a weight sum of 1: the same bits.
+    assert torch.equal(pfl.ce_grad_plain(
+        lg, lb, row_w, torch.tensor(g) / wsum.clamp(min=1e-12),
+        torch.tensor(1.0)), got)
+    # The CPU wrappers and the autograd Function go through these plain
+    # versions: the same bits.
+    assert all(torch.equal(a, b) for a, b in zip(
+        pfl.ce_fwd(lg, lb, row_w), (loss_sum, wsum, mean)))
+    x = lg.clone().requires_grad_()
+    fused_mean, _ = (pfl.garbage_loss_fused(x, lb, wt, mk) if garbage
+                     else pfl.softmax_loss_fused(x, lb, mk))
+    (auto,) = torch.autograd.grad(fused_mean, x, torch.tensor(g))
+    assert torch.equal(fused_mean.detach(), mean) and torch.equal(auto, got)
+
+
 @pytest.mark.parametrize("loss", ["entropic", "softmax", "garbage"])
 def test_plain_backward_gradcheck(loss):
     logits, labels, mask, weights = make_batch(b=6, c=5, seed=3,

@@ -3,8 +3,9 @@
 What the wrappers decide before a launch, so that it can be held here
 where no kernel runs: the build key of a CUDA source (``ops/_build.py``
 hashes the source and the headers it includes), K5's route and the rows
-each block of its fused route walks (``ops/fused_block_bwd.py``), the
-grid of K1 and K3 and the ticket their last program draws
+each block of its fused route walks (``ops/fused_block_bwd.py``), K6's
+route, block counts and M-splits (``experimental/split_site.py``), the
+grid of K1-K4 and the ticket the forwards' last program draws
 (``ops/fused_loss.py``), and ``train.build_model``'s default device.
 """
 
@@ -15,6 +16,7 @@ import torch
 
 from openset_imagenet_tpu_torch import train as pengine
 from openset_imagenet_tpu_torch.config import NameSpace
+from openset_imagenet_tpu_torch.experimental import split_site as ss
 from openset_imagenet_tpu_torch.ops import _build
 from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
 from openset_imagenet_tpu_torch.ops import fused_loss as fl
@@ -54,12 +56,19 @@ def test_source_key_covers_included_headers(tmp_path):
     assert _build.source_key(source) != key
 
 
-def test_port_sources_key_their_shared_header():
+@pytest.mark.parametrize("header", ["site_common.cuh", "hopper.cuh"])
+def test_port_sources_key_their_shared_header(header, tmp_path):
     csrc = pathlib.Path(fbb.SOURCE).parent
     for name in ("fused_block_bwd.cu", "split_site.cu"):
-        assert '#include "site_common.cuh"' in (csrc / name).read_text()
+        assert f'#include "{header}"' in (csrc / name).read_text()
         assert _build.source_key(csrc / name) == \
             _build.source_key(csrc / name)
+        # An edit to the header changes the source's key.
+        for f in (name, "site_common.cuh", "hopper.cuh"):
+            (tmp_path / f).write_bytes((csrc / f).read_bytes())
+        key = _build.source_key(tmp_path / name)
+        (tmp_path / header).write_text((csrc / header).read_text() + "\n")
+        assert _build.source_key(tmp_path / name) != key
 
 
 @pytest.mark.parametrize("m", [1, 63, 64, 65, 300, 12544 + 77, 802816])
@@ -114,6 +123,70 @@ def test_ragged_sites_take_the_generic_route():
                      True, 132)[0] == "tiled"
 
 
+# Every resnet50 tail site at batch 256 (M, ci, co), the shapes of K6.
+RESNET50_TAILS = [(802816, 64, 256), (200704, 128, 512), (50176, 256, 1024),
+                  (12544, 512, 2048)]
+
+
+@pytest.mark.parametrize("m,ci,co", RESNET50_TAILS)
+def test_every_resnet50_tail_takes_k6_tensor_core_route(m, ci, co):
+    plan = ss._plan(m, ci, co, torch.bfloat16, True, 132)
+    assert plan.route == "tensor_cores"
+    # k2: column tiles of up to 256 channels, so gp is read once at stages
+    # 1-3 and twice at stage 4; blocks along M fill the card once.
+    assert plan.bn == min(ci, 256) and -(-ci // plan.bn) == max(1, ci // 256)
+    per_sm = 2 if 2 * ss._k2_smem(plan.bn, co) <= ss._SMEM_LIMIT else 1
+    assert plan.p2 * -(-ci // plan.bn) <= 132 * per_sm
+    assert ss._k2_smem(plan.bn, co) <= ss._SMEM_LIMIT
+    assert ss._k4_smem(plan.bi) <= ss._SMEM_LIMIT
+    tiles = -(-m // 64)
+    ranges = ss.row_ranges(tiles, plan.p2)
+    assert ranges[0][0] == 0 and ranges[-1][1] == tiles
+    assert all(e == b for (_, e), (b, _) in zip(ranges, ranges[1:]))
+    assert all(e > b for b, e in ranges)
+    # k4: the kernel's M-splits (csrc launch_tensor_cores) are whole
+    # 64-row steps, as many as planned, every row once, one wave of one
+    # block an SM.
+    rows = -(-(-(-m // plan.splits)) // 64) * 64
+    assert -(-m // rows) == plan.splits and (plan.splits - 1) * rows < m
+    k4_tiles = -(-ci // plan.bi) * -(-co // 256)
+    assert k4_tiles * plan.splits <= 132
+    assert k4_tiles * plan.splits > 132 // 2
+    # k1 and k3: contiguous ranges of row tiles, at most eight blocks an
+    # SM, every tile once.
+    for blocks, channels in ((plan.g1, co), (plan.g3, ci)):
+        t = ss.stream_tiles(m, channels)
+        ranges = ss.row_ranges(t, blocks)
+        assert 1 <= blocks <= t and ranges[-1][1] == t
+        assert all(e > b for b, e in ranges)
+        assert all(e == b for (_, e), (b, _) in zip(ranges, ranges[1:]))
+    # A function of the shape alone.
+    assert ss._plan(m, ci, co, torch.bfloat16, True, 132) == plan
+
+
+@pytest.mark.parametrize("m,ci,co,dtype,aligned", [
+    (12544, 512, 2048, torch.float32, True),     # f32
+    (12544 + 77, 512, 2048, torch.float32, True),
+    (1003, 37, 21, torch.bfloat16, True),       # ragged channels
+    (1000, 72, 40, torch.bfloat16, True),
+    (802816, 64, 256, torch.bfloat16, False),   # rows off 16 bytes
+])
+def test_k6_other_sites_take_the_generic_route(m, ci, co, dtype, aligned):
+    plan = ss._plan(m, ci, co, dtype, aligned, 132)
+    assert plan.route == "generic" and (plan.bn, plan.bi) == (0, 0)
+    assert plan.p2 == -(-m // 128)   # the SIMT k2's 128-row blocks
+    assert plan.splits == fbb._splits(m, ci, co)
+    assert ss._plan(m, ci, co, dtype, aligned, 132) == plan
+
+
+def test_k6_ragged_m_takes_the_tensor_core_route():
+    plan = ss._plan(12544 + 77, 512, 2048, torch.bfloat16, True, 132)
+    assert plan.route == "tensor_cores"
+    tiles = -(-(12544 + 77) // 64)
+    assert ss.row_ranges(tiles, plan.p2)[-1][1] == tiles
+    assert ss._plan(300, 64, 256, torch.bfloat16, True, 132).p2 == 5
+
+
 # The one-launch forwards and their main path's shapes: K1 (entropic,
 # 116 classes) and K3 (softmax / garbage, 117 with the garbage class).
 ONE_LAUNCH = {"entropic_fwd": {(64, 116), (256, 116)},
@@ -151,15 +224,16 @@ def test_k3_grid_and_tickets(kernel, b, c):
                                     1)
 
 
-@pytest.mark.parametrize("b,c", [(256, 116), (64, 116), (1000, 1000),
-                                 (4099, 3)])
-def test_k2_programs_cover_every_row_once(b, c):
-    """K2's grid, chosen on the card: two-row programs of one warp at the
-    main path's 116 classes."""
-    block_c, rows = fl._tiling(c, fl._TILE_ELEMS["entropic_bwd"])
+@pytest.mark.parametrize("kernel", ["entropic_bwd", "ce_bwd"])
+@pytest.mark.parametrize("b,c", [(256, 116), (64, 116), (256, 117),
+                                 (64, 117), (1000, 1000), (4099, 3)])
+def test_k2_programs_cover_every_row_once(kernel, b, c):
+    """K2's and K4's grid, chosen on the card: two-row programs of one warp
+    at the main path's 116 (entropic, softmax) and 117 (garbage) classes."""
+    block_c, rows = fl._tiling(c, fl._TILE_ELEMS[kernel])
     programs = -(-b // rows)
     assert programs * rows >= b > (programs - 1) * rows
-    if c == 116:
+    if c in (116, 117):
         assert (rows, programs, fl._warps(rows * block_c)) == (2, b // 2, 1)
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The loss kernels, K5 and the train step of two checkouts of the PyTorch
+"""The loss kernels, K5, K6 and the train step of two checkouts of the PyTorch
 port, in turns.
 
     python tools/ab_torch_kernels.py --parent build/parent [--steps 10]
@@ -23,9 +23,20 @@ turn measures, on the card:
   [256, 116], the loss's whole train-step work: device µs per call from
   graph replays of 20 calls, and the kernels one eager call launches
   (``torch.profiler``);
+* the weighted CE behind the softmax and garbage losses, float32 logits,
+  labels from 0, class weights: K4 (``ce_grad``) at [64, 117] and [256,
+  117], given the cotangent and the weight sum where the checkout's K4
+  takes them and the scale torch computes from them where it takes a
+  scale; and ``garbage_loss_fused`` forward + ``torch.autograd.grad`` at
+  [64, 117], device µs per call from graph replays of 20 calls, and the
+  kernels one eager call launches;
 * K5 (``ops.fused_block_bwd.bwd_site``) in bfloat16 at every pointwise
   site of resnet50 at 224 px and batch 256: device ms per call from a
   graph replay of 5 calls, inputs drawn on the card from a fixed seed;
+* K6 (``experimental.split_site.tail_site_split``) in bfloat16 at the
+  resnet50 stage-1 and stage-4 tails at batch 256: device ms per call
+  from a graph replay of 5 calls, inputs drawn on the card from a fixed
+  seed;
 * the train step of a full-width resnet50 (116 classes, random weights
   from seed 0, ghost batch-norm over 64 rows, entropic loss, Adam at lr
   1e-3, bfloat16, channels_last, batch 256 of device-resident uint8), in
@@ -102,6 +113,29 @@ def graph_ms(torch, fn, calls, reps=10):
     return statistics.median(times)
 
 
+def launches(torch, fn):
+    """Kernels one call of ``fn`` launches (``torch.profiler``), after an
+    eager call that makes what a first call on this stream makes (the
+    forwards' ticket counter).  A window can miss its first launch, so
+    each opens with a marker kernel (``torch.cuda._sleep``, not counted);
+    and a window can come back empty, so the fullest of three counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    count = 0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+        count = max(count, sum(
+            1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.name))
+    return count
+
+
 def k3(torch, fl):
     import numpy as np
     import torch.nn.functional as F
@@ -128,7 +162,6 @@ def entropic(torch, fl):
     import inspect
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(1)
     out = {}
@@ -157,14 +190,42 @@ def entropic(torch, fl):
         return torch.autograd.grad(mean, logits, g)
 
     out["entropic_loss_us[256,116]"] = 1e3 * graph_ms(torch, loss, 20)
-    for _ in range(2):   # a first profiler window can come back empty
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            loss()
-            torch.cuda.synchronize()
-    out["entropic_loss_launches"] = float(sum(
-        1 for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA))
+    out["entropic_loss_launches"] = float(launches(torch, loss))
+    return out
+
+
+def weighted_ce(torch, fl):
+    import inspect
+
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    out = {}
+    g = torch.tensor(0.37, device="cuda")
+    takes_wsum = "wsum" in inspect.signature(fl.ce_grad).parameters
+    for b in (256, 64):
+        logits = torch.from_numpy((rng.normal(size=(b, 117)) * 3).astype(
+            np.float32)).cuda()
+        labels = torch.from_numpy(rng.integers(0, 117, b).astype(np.int32)
+                                  ).cuda()
+        mask = torch.from_numpy((rng.random(b) > 0.2).astype(np.float32)
+                                ).cuda()
+        class_w = torch.from_numpy(rng.uniform(0.2, 2.0, 117).astype(
+            np.float32)).cuda()
+        rows = class_w[labels.long()] * mask
+        wsum = rows.sum()
+        args = ((g, wsum) if takes_wsum else   # a K4 that takes the scale
+                (g / wsum.clamp(min=1e-12),))
+        out[f"k4_us[{b},117]"] = 1e3 * graph_ms(
+            torch, lambda: fl.ce_grad(logits, labels, rows, *args), 20)
+    logits.requires_grad_()
+
+    def loss():
+        mean, _ = fl.garbage_loss_fused(logits, labels, class_w, mask)
+        return torch.autograd.grad(mean, logits, g)
+
+    out["garbage_loss_us[64,117]"] = 1e3 * graph_ms(torch, loss, 20)
+    out["garbage_loss_launches"] = float(launches(torch, loss))
     return out
 
 
@@ -185,6 +246,26 @@ def k5(torch, fbb):
         out[f"k5_ms[{name}]"] = graph_ms(
             torch, lambda: fbb.bwd_site(*args, in_act=in_act,
                                         emit_gp=emit_gp), 5)
+        del args, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def k6(torch, ss):
+    out = {}
+    for seed, (name, m, ci, co) in enumerate((
+            ("stage1 tail", 802816, 64, 256), ("stage4 tail", 12544, 512,
+                                                2048))):
+        gen = torch.Generator(device="cuda").manual_seed(100 + seed)
+        draw = lambda *s, dt=torch.bfloat16, scale=1.0: (torch.randn(
+            *s, generator=gen, device="cuda") * scale).to(dt)
+        mask = torch.randint(0, 2, (m, co), generator=gen,
+                             device="cuda").to(torch.int8)
+        args = [draw(m, co), draw(m, co), mask, draw(m, ci),
+                draw(ci, co, scale=0.05), draw(co, dt=torch.float32),
+                draw(ci, dt=torch.float32), draw(ci, dt=torch.float32)]
+        out[f"k6_ms[{name}]"] = graph_ms(
+            torch, lambda: ss.tail_site_split(*args), 5)
         del args, mask
         torch.cuda.empty_cache()
     return out
@@ -260,6 +341,7 @@ def one_turn(turn, root, steps):
         raise RuntimeError(f"imported {here}, not the port under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from openset_imagenet_tpu_torch.experimental import split_site as ss
     from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
     from openset_imagenet_tpu_torch.ops import fused_loss as fl
 
@@ -267,7 +349,9 @@ def one_turn(turn, root, steps):
               "device": torch.cuda.get_device_name(0)}
     result.update(k3(torch, fl))
     result.update(entropic(torch, fl))
+    result.update(weighted_ce(torch, fl))
     result.update(k5(torch, fbb))
+    result.update(k6(torch, ss))
     result.update(train(torch, False, steps))
     result.update(train(torch, True, steps))
     print(json.dumps(result), flush=True)
