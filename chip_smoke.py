@@ -66,7 +66,27 @@ from a seed), and checks what comes out:
    fused model against the unfused one (bf16: loss within 1e-2, gradients
    within 5e-2 in norm, the two backwards rounding in other places;
    float32 at batch 64, ghost-16, no TF32: gradients within 1e-3).
-   Prints train-step imgs/s of both forms in turns and their peak memory.
+   Prints train-step imgs/s of both forms in turns and their peak memory;
+7. the worker: ``train.worker(cfg)`` from an in-code config (synthetic
+   reader, 8 decode threads, cuDNN deterministic), each run in a fresh
+   output directory, over phase 5's 560-row index and a 320-row
+   validation index with 88 negatives: (a) entropic, batch 256, ghost-64,
+   Adam lr 1e-3, 2 epochs, checkpoints written in the background --
+   ``_curr``, ``_best``, the log file and five scalars for each epoch, 116
+   classes, the 48-row tail through the tail step, K1 on every train and
+   eval step and K2 on every train step; (b) the same run cut by
+   ``max_steps: 4`` after batch 1 of epoch 1 (``extra.progress``), then
+   resumed to 2 epochs: its ``_curr`` (weights, buffers, optimizer state,
+   counters) bit-equal to (a)'s; (c) the same with ``fused_blocks`` +
+   ``boundary_mask``, 1 epoch: the tail dropped (2 steps), >= 32 K5 site
+   calls a step, γ written; (d) softmax and garbage at batch 64, 1 epoch,
+   garbage with ``opt: {ema: 0.999, accumulate_steps: 2}``: 116 and 117
+   classes, the softmax run on the known rows only, K3 and K4 on every
+   step, garbage's ``_best`` holding the EMA shadow, not ``_curr``'s
+   weights.  Prints each run's ``info``, j, γ, epoch and validation
+   seconds, the checkpoint writes' seconds on the writer thread against
+   the training thread's seconds in ``save()`` (host clock), and the
+   phase's seconds.
 
 Phase 2b holds K5 (``ops/fused_block_bwd.py``, CUDA C++ built by ``nvcc``
 at first use) against its plain version at every distinct resnet50 site
@@ -106,8 +126,9 @@ fresh process starts from zero counts).
 
 The launch counts are zeroed just before phase 3 and read after phase 4
 (the serving path), zeroed again before phase 5's epochs and read after
-them (the train path), and again around phase 6's epoch and validation
-(the fused train path): each path must have launched its kernels.
+them (the train path), again around phase 6's epoch and validation
+(the fused train path), and around each of phase 7's worker runs: each
+path must have launched its kernels.
 Float32 matmuls and convolutions run without TF32 (both backend flags
 off), so float32 comparisons on the card are exact float32.
 
@@ -1571,6 +1592,266 @@ def fused_checks(torch, run, twin, ghost):
         check(ok, message)
 
 
+# -- phase 7: the worker ------------------------------------------------------
+
+VAL_ROWS = 320            # 116 known classes twice, 88 negatives
+
+
+def write_val_index(out_dir):
+    """The validation CSV of the worker runs: every known class twice and
+    the rest label -1 (two batches of 256, five of 64)."""
+    rng = np.random.default_rng(SEED + 7)
+    labels = np.concatenate([np.repeat(np.arange(N_CLASSES), 2),
+                             -np.ones(VAL_ROWS - 2 * N_CLASSES, int)])
+    rng.shuffle(labels)
+    path = out_dir / "p1_val.csv"
+    with open(path, "w") as f:
+        for i, label in enumerate(labels):
+            f.write(f"n{max(label, 0):08d}/val_{i:05d}.JPEG,{label}\n")
+    return path
+
+
+def worker_cfg(out_dir, run, loss="entropic", batch=TRAIN_BATCH, epochs=2,
+               model=None, opt=None, **over):
+    """An in-code config of one ``worker`` run (no YAML on the GPU host)."""
+    from openset_imagenet_tpu_torch.config import NameSpace
+
+    return NameSpace({
+        "name": loss, "checkpoint": None, "log_name": "training.log",
+        "train_mode": "train",
+        "data": {"imagenet_path": str(out_dir / "imagenet"),
+                 "train_file": str(out_dir / "p{}_train.csv"),
+                 "val_file": str(out_dir / "p{}_val.csv"),
+                 "reader": "synthetic", "image_size": IMAGE},
+        "seed": SEED + 21, "batch_size": batch, "epochs": epochs,
+        "workers": 8, "patience": 0, "loss": {"type": loss, "w": 1.0},
+        "opt": opt or {"type": "adam", "lr": 1e-3},
+        "model": model or {"variant": VARIANT, "bn_stats_rows": GHOST},
+        "async_checkpoint": True, "protocol": 1,
+        "output_directory": out_dir / "worker" / run, **over})
+
+
+class WorkerProbe:
+    """Host-clock times of one ``worker`` run's epochs, validations and
+    checkpoint writes, and the calls of its tail step, by wrapping the
+    module functions the worker calls; the kernels' launch counts start
+    at 0 with it."""
+
+    def __init__(self, torch, fl, fbb):
+        from openset_imagenet_tpu_torch import checkpoint as ckpt
+        from openset_imagenet_tpu_torch import train as engine
+
+        self.torch, self.fl, self.fbb = torch, fl, fbb
+        self.engine, self.ckpt = engine, ckpt
+        self.times = {"epoch": [], "validate": [], "write": [], "save": []}
+        self.tail_rows = []
+
+    def _timed(self, name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.times[name].append(time.perf_counter() - t0)
+        return call
+
+    def _tail(self, make):
+        def make_tail_step(loss_fn, model, n_tail, train_step):
+            step = make(loss_fn, model, n_tail, train_step)
+            if step is None or step is train_step:
+                return step
+
+            def tail(*args):
+                state, m = step(*args)
+                self.tail_rows.append(float(m["count"]))
+                return state, m
+            return tail
+        return make_tail_step
+
+    def run(self, cfg):
+        engine, ckpt = self.engine, self.ckpt
+        saved = (engine.train_epoch, engine.validate, engine.make_tail_step,
+                 ckpt._write, ckpt.AsyncCheckpointer.save)
+        engine.train_epoch = self._timed("epoch", engine.train_epoch)
+        engine.validate = self._timed("validate", engine.validate)
+        engine.make_tail_step = self._tail(engine.make_tail_step)
+        ckpt._write = self._timed("write", ckpt._write)
+        ckpt.AsyncCheckpointer.save = self._timed(
+            "save", ckpt.AsyncCheckpointer.save)
+        for k in self.fl.LAUNCHES:
+            self.fl.LAUNCHES[k] = 0
+        self.fbb.LAUNCHES["fused_block_bwd"] = 0
+        t0 = time.perf_counter()
+        try:
+            info = engine.worker(cfg)
+        finally:
+            (engine.train_epoch, engine.validate, engine.make_tail_step,
+             ckpt._write, ckpt.AsyncCheckpointer.save) = saved
+        self.seconds = time.perf_counter() - t0
+        self.launches = {**self.fl.LAUNCHES, **self.fbb.LAUNCHES}
+        return info
+
+    def report(self, label, cfg, info):
+        from openset_imagenet_tpu_torch.events import read_scalars
+
+        scalars = read_scalars(cfg.output_directory)
+        last = {tag: values[-1][1] for tag, values in scalars.items()}
+        gamma = last.get("val/conf_kn", 0.0) + last.get("val/conf_unk", 0.0)
+        t = {k: [round(x, 3) for x in v] for k, v in self.times.items()}
+        print(f"worker {label}: info {info}; j {last.get('train/loss')} "
+              f"val j {last.get('val/loss')} gamma {gamma}; epoch s "
+              f"{t['epoch']}, validate s {t['validate']}, checkpoint writes "
+              f"s {t['write']} (writer thread) against save() s {t['save']} "
+              f"(training thread); run {self.seconds:.2f} s (host clock); "
+              f"launches {self.launches}")
+        return scalars
+
+
+def same_checkpoints(torch, a, b):
+    """Two ``_curr`` files hold bit-equal weights, buffers, optimizer
+    state and counters; returns the number of tensors compared."""
+    pa = torch.load(a, map_location="cpu", weights_only=True)
+    pb = torch.load(b, map_location="cpu", weights_only=True)
+    check(pa["step"] == pb["step"] and pa["updates"] == pb["updates"] and
+          pa["epoch"] == pb["epoch"], f"counters differ: {a} {b}")
+    n = 0
+    for k, v in pa["model_state_dict"].items():
+        check(torch.equal(v, pb["model_state_dict"][k]), f"{k} differs")
+        n += 1
+    oa, ob = pa["opt_state_dict"], pb["opt_state_dict"]
+    check(oa["param_groups"] == ob["param_groups"], "param groups differ")
+    for i, st in oa["state"].items():
+        for name, value in st.items():
+            check(torch.equal(value, ob["state"][i][name]),
+                  f"optimizer state {i}/{name} differs")
+            n += 1
+    return n
+
+
+def worker_phase(torch, fl, fbb, out_dir):
+    """Phase 7: ``worker(cfg)`` runs (a)-(d) on the card; returns the
+    launches of the kernels over the four runs."""
+    import shutil
+
+    from openset_imagenet_tpu_torch.checkpoint import read_metadata
+
+    write_val_index(out_dir)
+    shutil.rmtree(out_dir / "worker", ignore_errors=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    total = {}
+
+    def count(probe):
+        for k, v in probe.launches.items():
+            total[k] = total.get(k, 0) + v
+
+    try:
+        # (a) entropic, batch 256, ghost-64, Adam, 2 epochs, async writes.
+        cfg_a = worker_cfg(out_dir, "a")
+        probe = WorkerProbe(torch, fl, fbb)
+        info = probe.run(cfg_a)
+        scalars = probe.report("(a) entropic", cfg_a, info)
+        count(probe)
+        out = cfg_a.output_directory
+        check(all((out / f).exists() for f in (
+            "entropic_curr.pth", "entropic_best.pth", "training.log")),
+            "(a): a file is missing")
+        check(len(scalars) == 5 and all(len(v) == 2 for v in
+                                        scalars.values()),
+              f"(a): scalars {sorted(scalars)}")
+        check(info["n_classes"] == N_CLASSES and info["last_epoch"] == 1 and
+              info["stopped_mid_epoch"] is None, f"(a): {info}")
+        check(probe.tail_rows == [TRAIN_ROWS % TRAIN_BATCH] * 2,
+              f"(a): tail-step rows {probe.tail_rows}")
+        steps = 2 * len(range(0, TRAIN_ROWS, TRAIN_BATCH))
+        evals = 2 * len(range(0, VAL_ROWS, TRAIN_BATCH))
+        check(probe.launches["entropic_fwd"] == steps + evals and
+              probe.launches["entropic_bwd"] == steps,
+              f"(a): K1/K2 not on every step: {probe.launches}")
+        check(read_metadata(out / "entropic_curr.pth")["step"] == steps,
+              "(a): steps")
+
+        # (b) the same run cut by max_steps inside epoch 1, then resumed.
+        cfg_b = worker_cfg(out_dir, "b", max_steps=4)
+        probe = WorkerProbe(torch, fl, fbb)
+        info = probe.run(cfg_b)
+        probe.report("(b) cut", cfg_b, info)
+        count(probe)
+        curr_b = cfg_b.output_directory / "entropic_curr.pth"
+        meta = read_metadata(curr_b)
+        check(info["stopped_mid_epoch"] == 1 and info["last_epoch"] == 1 and
+              meta["extra"].get("progress") == {"epoch": 1,
+                                                "next_batch": 1},
+              f"(b): {info} {meta}")
+        cfg_b2 = worker_cfg(out_dir, "b", checkpoint=str(curr_b))
+        probe = WorkerProbe(torch, fl, fbb)
+        info = probe.run(cfg_b2)
+        probe.report("(b) resumed", cfg_b2, info)
+        count(probe)
+        n = same_checkpoints(torch, out / "entropic_curr.pth", curr_b)
+        print(f"worker (b): the resumed _curr is bit-equal to (a)'s "
+              f"({n} tensors, step {read_metadata(curr_b)['step']})")
+        shutil.rmtree(cfg_b.output_directory)
+        shutil.rmtree(out)
+
+        # (c) fused blocks + boundary mask, 1 epoch: the tail is dropped.
+        cfg_c = worker_cfg(out_dir, "c", epochs=1, model={
+            "variant": VARIANT, "bn_stats_rows": GHOST,
+            "fused_blocks": True, "boundary_mask": True})
+        probe = WorkerProbe(torch, fl, fbb)
+        info = probe.run(cfg_c)
+        scalars = probe.report("(c) fused", cfg_c, info)
+        count(probe)
+        step_c = read_metadata(cfg_c.output_directory /
+                               "entropic_curr.pth")["step"]
+        check(step_c == TRAIN_ROWS // TRAIN_BATCH and not probe.tail_rows,
+              f"(c): {step_c} steps, tail {probe.tail_rows}")
+        check(probe.launches["fused_block_bwd"] >= 32 * step_c,
+              f"(c): K5 launches {probe.launches}")
+        check(len(scalars.get("val/conf_kn", [])) == 1 and
+              len(scalars.get("val/conf_unk", [])) == 1, "(c): no gamma")
+        shutil.rmtree(cfg_c.output_directory)
+
+        # (d) softmax, and garbage with EMA and accumulation, batch 64.
+        for loss, opt, n_classes, rows in (
+                ("softmax", None, N_CLASSES, 4 * N_CLASSES),
+                ("garbage", {"type": "adam", "lr": 1e-3, "ema": 0.999,
+                             "accumulate_steps": 2}, N_CLASSES + 1,
+                 TRAIN_ROWS)):
+            cfg_d = worker_cfg(out_dir, "d_" + loss, loss=loss, batch=BATCH,
+                               epochs=1, opt=opt,
+                               model={"variant": VARIANT})
+            probe = WorkerProbe(torch, fl, fbb)
+            info = probe.run(cfg_d)
+            probe.report(f"(d) {loss}", cfg_d, info)
+            count(probe)
+            steps = len(range(0, rows, BATCH))
+            curr = cfg_d.output_directory / f"{loss}_curr.pth"
+            check(info["n_classes"] == n_classes and
+                  read_metadata(curr)["step"] == steps,
+                  f"(d) {loss}: {info}, {read_metadata(curr)}")
+            check(probe.launches["ce_fwd"] >= steps and
+                  probe.launches["ce_bwd"] == steps,
+                  f"(d) {loss}: K3/K4 launches {probe.launches}")
+            if loss == "garbage":
+                c = torch.load(curr, map_location="cpu", weights_only=True)
+                b = torch.load(cfg_d.output_directory / "garbage_best.pth",
+                               map_location="cpu", weights_only=True)
+                check(c["accumulation"]["mini_step"] == steps % 2 and
+                      c["updates"] == steps // 2, "(d): accumulation")
+                for name, shadow in c["ema_state_dict"].items():
+                    check(torch.equal(b["model_state_dict"][name], shadow),
+                          f"(d): _best {name} is not the EMA shadow")
+                check(not torch.equal(
+                    b["model_state_dict"]["logits.weight"],
+                    c["model_state_dict"]["logits.weight"]),
+                    "(d): _best weights equal _curr's")
+            shutil.rmtree(cfg_d.output_directory)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return total
+
+
 def loss_bound(name, b, c):
     """Least device ms of a loss kernel on [b, c] float32 logits: the
     logits, labels and row mask or weights read once, and the scalars
@@ -1702,6 +1983,13 @@ def main():
                                             out_dir / "p1_train.csv")
     fused_checks(torch, run, twin, GHOST)
     print(f"phase fused train: ok ({time.perf_counter() - t0:.1f} s)")
+    del run, twin
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    worker_launches = worker_phase(torch, fl, fbb, out_dir)
+    print(f"launches on the worker path: {worker_launches}")
+    print(f"phase worker: ok ({time.perf_counter() - t0:.1f} s)")
 
     # Bounds at the shapes the times were taken at.
     replaces = {"entropic_fwd": (39, 256, 116),
@@ -1715,7 +2003,7 @@ def main():
             "source": "openset_imagenet_tpu_torch/ops/triton_fused_loss.py",
             "replaces": f"openset_imagenet_tpu/ops/fused_loss.py:{line}",
             "launches": (launches[name] + train_launches[name]
-                         + fused_launches[name]),
+                         + fused_launches[name] + worker_launches[name]),
             "max_abs_err": max_err[name], "ms": timing[name][0],
             "plain_ms": timing[name][1], "bound_ms": bound,
             "bound_by": bound_by, "library_ms": library.get(name)})
@@ -1726,7 +2014,9 @@ def main():
         "name": "fused_block_bwd", "route": "cuda",
         "source": "openset_imagenet_tpu_torch/csrc/fused_block_bwd.cu",
         "replaces": "openset_imagenet_tpu/experimental/fused_block.py:111",
-        "launches": fused_launches["fused_block_bwd"], "max_abs_err": k5_err,
+        "launches": (fused_launches["fused_block_bwd"]
+                     + worker_launches["fused_block_bwd"]),
+        "max_abs_err": k5_err,
         "ms": k5_timing[0], "plain_ms": k5_timing[1], "bound_ms": site_bound,
         "bound_by": site_by, "library_ms": None})
     kernels.append({

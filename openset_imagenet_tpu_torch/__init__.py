@@ -7,15 +7,19 @@ It imports ``torch`` and ``numpy`` only -- never ``jax`` or the JAX
 package -- and nothing here is imported before it is first used: the
 public names below resolve lazily on attribute access.
 
-What runs today is the serving slice and the trainer below the worker:
-the two-head ResNet (eval and train mode, full-batch and ghost
-batch-norm, and the fused-backward bottleneck of ``model.fused_blocks``
-with its CUDA C++ site kernel), the weight bridge (parameters and
-optimizer state), the three losses (forwards and backwards as
-hand-written Triton kernels on CUDA tensors), the confidence metrics,
-the dataset index, the input pipeline, the optimizer and schedules, the
-train and eval steps and epoch loops, ``.pth`` checkpoints with
-optimizer state and :class:`OpenSetPredictor`.
+What runs today is the serving slice and the whole training run: the
+two-head ResNet (eval and train mode, full-batch and ghost batch-norm,
+and the fused-backward bottleneck of ``model.fused_blocks`` with its
+CUDA C++ site kernel), the weight bridge (parameters and optimizer
+state), the three losses (forwards and backwards as hand-written Triton
+kernels on CUDA tensors), the confidence metrics, the dataset index, the
+input pipeline (with the native JPEG batch reader), the optimizer and
+schedules (with ``opt.ema`` and ``opt.accumulate_steps``), the train and
+eval steps and epoch loops, the worker (``worker(cfg)``: label surgery,
+``_curr`` / ``_best`` checkpoints written atomically and in the
+background, γ selection, resume, preemption, early stopping, the scalar
+record and log file; ``python -m openset_imagenet_tpu_torch.script.train``)
+and :class:`OpenSetPredictor`.
 """
 
 from __future__ import annotations
@@ -41,6 +45,9 @@ _EXPORTS = {
     "create_state": "train",
     "make_train_step": "train",
     "train_epoch": "train",
+    "worker": "train",
+    "EarlyStopping": "ops.losses",
+    "AsyncCheckpointer": "checkpoint",
 }
 
 __all__ = sorted(_EXPORTS)

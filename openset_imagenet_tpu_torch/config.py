@@ -1,12 +1,14 @@
 """Configuration namespaces: nested mappings with attribute access.
 
 Counterpart of :mod:`openset_imagenet_tpu.config` (``NameSpace`` and
-``load_yaml``).  PyYAML is imported only inside :func:`load_yaml`, so the
-serving slice runs where it is not installed.
+``load_yaml``, ``NameSpace.dump``).  PyYAML is imported only inside
+:func:`load_yaml` and :meth:`NameSpace.dump`, so the port runs where it
+is not installed.
 """
 
 from __future__ import annotations
 
+import pathlib
 from typing import Any, Mapping
 
 
@@ -42,6 +44,24 @@ class NameSpace:
     def dict(self) -> dict:
         return {k: v.dict() if isinstance(v, NameSpace) else v
                 for k, v in vars(self).items()}
+
+    def dump(self, indent: int = 4) -> str:
+        """Serialise to YAML text (the sweep script's config round trip)."""
+        import yaml
+
+        return yaml.dump(_to_dumpable(self.dict()), indent=indent)
+
+
+def _to_dumpable(obj: Any) -> Any:
+    """Make values YAML-safe: pathlib paths become plain strings (the
+    worker logs its config through it without PyYAML)."""
+    if isinstance(obj, dict):
+        return {k: _to_dumpable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_to_dumpable(v) for v in obj]
+    if isinstance(obj, pathlib.PurePath):
+        return str(obj)
+    return obj
 
 
 def load_yaml(yaml_file) -> NameSpace:

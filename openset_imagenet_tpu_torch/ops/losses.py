@@ -101,3 +101,30 @@ class AverageMeter:
 
     def __repr__(self):
         return f"{self.avg:3.3f}"
+
+
+class EarlyStopping:
+    """Stop training when a monitored metric stops improving.
+
+    Reference ``losses.py:65-94``: ``delta`` threshold, ``patience``
+    epochs, the score negated when monitoring a loss.
+    """
+
+    def __init__(self, patience: int = 100, delta: float = 0.0):
+        self.patience = patience
+        self.delta = delta
+        self.counter = 0
+        self.best_score = None
+        self.early_stop = False
+
+    def __call__(self, metrics: float, loss: bool = True):
+        score = -metrics if loss else metrics
+        if self.best_score is None:
+            self.best_score = score
+        elif score < self.best_score + self.delta:
+            self.counter += 1
+            if self.counter >= self.patience:
+                self.early_stop = True
+        else:
+            self.best_score = score
+            self.counter = 0

@@ -94,7 +94,10 @@ class InputPipeline:
         is_training: shuffle each epoch + random augmentation when True.
         seed: base seed for shuffle/augmentation streams.
         num_workers: decode threads.
-        reader: ``reader(path, rng_or_None) -> uint8 [H, W, 3]``.
+        reader: ``reader(path, rng_or_None) -> uint8 [H, W, 3]``, or an
+            object with ``read_batch(paths, rngs) -> uint8 [N, H, W, 3]``
+            (batch mode: one decode call per batch, the padding still
+            last).
         prefetch: batches kept in flight ahead of the consumer.
         drop_remainder: drop the ragged last batch instead of padding it.
         pin_memory: write batches into page-locked (pinned) memory, for
@@ -159,6 +162,15 @@ class InputPipeline:
                if self.is_training else None)
         return self.reader(self.paths[index], rng)
 
+    def _load_batch(self, idxs: np.ndarray, epoch: int) -> Batch:
+        """Whole-batch load through a ``read_batch`` reader (one call that
+        releases the GIL)."""
+        real = idxs[idxs >= 0]
+        rngs = [T.sample_rng(self.seed, epoch, int(i))
+                if self.is_training else None for i in real]
+        images = self.reader.read_batch([self.paths[i] for i in real], rngs)
+        return self._assemble(idxs, images)
+
     def epoch(self, epoch: int = 0, start_batch: int = 0) -> Iterator[Batch]:
         """Yield the batches of one epoch, decoded ahead by the pool.
 
@@ -175,8 +187,14 @@ class InputPipeline:
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
+        batch_mode = hasattr(self.reader, "read_batch")
+
         def submit(batch_idx):
             idxs = self._batch_indices(order, batch_idx)
+            if batch_mode:
+                # One future per batch; the reader's own thread pool
+                # spreads the images.
+                return idxs, self._pool.submit(self._load_batch, idxs, epoch)
             return idxs, [self._pool.submit(self._load, i, epoch)
                           for i in idxs if i >= 0]
 
@@ -189,7 +207,8 @@ class InputPipeline:
                         window.append(submit(submitted))
                         submitted += 1
                     idxs, futs = window.pop(0)
-                    out_q.put(self._assemble(idxs,
+                    out_q.put(futs.result() if batch_mode else
+                              self._assemble(idxs,
                                              [f.result() for f in futs]))
                     b += 1
                 out_q.put(None)

@@ -654,6 +654,65 @@ def test_fused_train_step_on_cuda_goes_through_k5(cuda_k5):
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
 
 
+# -- the worker on the card ---------------------------------------------------
+
+def _worker_cfg(tmp_path, **over):
+    """A tiny entropic run: 21 train rows at batch 8 (a 5-row tail), 14
+    val rows, the synthetic reader, 32 px."""
+    from openset_imagenet_tpu_torch.config import NameSpace
+
+    rng = np.random.default_rng(0)
+    for split, n in (("train", 21), ("val", 14)):
+        labels = np.concatenate([np.arange(-1, 3),
+                                 rng.integers(-1, 3, n - 4)])
+        with open(tmp_path / f"p1_{split}.csv", "w") as f:
+            f.writelines(f"n0/{split}_{i}.JPEG,{label}\n"
+                         for i, label in enumerate(labels))
+    cfg = {"name": "entropic", "log_name": "training.log",
+           "data": {"imagenet_path": str(tmp_path),
+                    "train_file": str(tmp_path / "p{}_train.csv"),
+                    "val_file": str(tmp_path / "p{}_val.csv"),
+                    "reader": "synthetic", "image_size": 32},
+           "seed": 1, "batch_size": 8, "epochs": 2, "workers": 2,
+           "loss": {"type": "entropic"}, "opt": {"type": "adam", "lr": 1e-3},
+           "model": {"variant": "tiny", "bn_stats_rows": 4}, "protocol": 1,
+           "output_directory": tmp_path / "out", **over}
+    return NameSpace(cfg)
+
+
+def test_worker_defaults_to_the_card(cuda, tmp_path):
+    from openset_imagenet_tpu_torch import train as engine
+
+    info = engine.worker(_worker_cfg(tmp_path, max_steps=1))
+    assert info["device_ids"] == [torch.cuda.current_device()]
+    assert info["stopped_mid_epoch"] == 1
+    info = engine.worker(_worker_cfg(tmp_path, max_steps=1, gpu=0))
+    assert info["device_ids"] == [0]
+
+
+def test_tiny_worker_run_on_the_card(cuda, tmp_path):
+    from openset_imagenet_tpu_torch import checkpoint
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.events import read_scalars
+
+    cfg = _worker_cfg(tmp_path, opt={"type": "adam", "lr": 1e-3,
+                                     "ema": 0.9, "accumulate_steps": 2})
+    before = dict(fl.LAUNCHES)
+    info = engine.worker(cfg)
+    assert info["last_epoch"] == 1 and info["n_classes"] == 3
+    assert np.isfinite(info["best_score"])
+    # Three steps (the tail through its own window) and a validation of
+    # two batches an epoch: K1 on every step and eval batch, K2 on every
+    # train step.
+    assert fl.LAUNCHES["entropic_fwd"] - before["entropic_fwd"] == 10
+    assert fl.LAUNCHES["entropic_bwd"] - before["entropic_bwd"] == 6
+    meta = checkpoint.read_metadata(cfg.output_directory /
+                                    "entropic_curr.pth")
+    assert (meta["epoch"], meta["step"]) == (2, 6)
+    assert all(len(v) == 2 for v in read_scalars(
+        cfg.output_directory).values())
+
+
 # -- K6: the split tail-site backward (CUDA C++) ------------------------------
 #
 # Held to its plain version (the split's dataflow): gp exactly; dW and the

@@ -188,7 +188,8 @@ def test_port_checkpoint_loads_in_both_packages(tmp_path):
     again = pengine.build_model(NameSpace({"model": {"variant": "tiny50"}}),
                                 5, dtype=torch.float32, device="cpu")
     # epoch 2 finished: stored as 3, the epoch to resume at.
-    assert checkpoint.load_checkpoint(path, again) == (3, 0.5, 0)
+    assert checkpoint.load_checkpoint(path, again)[1:] == (3, 0.5)
+    assert checkpoint.read_metadata(path)["step"] == 0
     for key, value in model.state_dict().items():
         assert torch.equal(again.state_dict()[key], value), key
     jmodel = jax_build("tiny50", fc_layer_dim=5, out_features=5,
@@ -221,6 +222,11 @@ def test_import_leaves_jax_unloaded():
         "import openset_imagenet_tpu_torch.ops.stream_probe\n"
         "import openset_imagenet_tpu_torch.tools.bench_split_site\n"
         "import openset_imagenet_tpu_torch.tools.bench_stream\n"
+        "from openset_imagenet_tpu_torch.train import worker\n"
+        "import openset_imagenet_tpu_torch.events\n"
+        "import openset_imagenet_tpu_torch.logger\n"
+        "import openset_imagenet_tpu_torch.native.jpeg\n"
+        "import openset_imagenet_tpu_torch.script.train\n"
         "heavy = ('jax', 'flax', 'optax', 'openset_imagenet_tpu', 'yaml',\n"
         "         'msgpack', 'pandas', 'PIL', 'triton')\n"
         "print([m for m in sys.modules if m.split('.')[0] in heavy])\n")
