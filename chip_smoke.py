@@ -86,7 +86,30 @@ from a seed), and checks what comes out:
    weights.  Prints each run's ``info``, j, γ, epoch and validation
    seconds, the checkpoint writes' seconds on the writer thread against
    the training thread's seconds in ``save()`` (host clock), and the
-   phase's seconds.
+   phase's seconds.  The checkpoints of (a) and (d) stay for phase 8;
+8. evaluation: a 2,111-row test index beside phase 7's validation index
+   (every known class ten times, 475 rows -1, 476 rows -2; eight batches
+   of 256 and a ragged tail of 63), then ``script.evaluate.main``
+   in-process (``--device cuda --reader synthetic``, batch 256, without
+   ``--model-variant``: the architecture comes from the checkpoint) on
+   (a)'s entropic ``_curr`` and ``_best`` and (d)'s softmax and garbage
+   ``_curr``.  Checks: 116 columns (117 for garbage), ``gt`` float32 with
+   -1 and -2 (no label surgery) and one row per CSV row, finite values,
+   scores rows summing to 1 within 1e-5, and the first test batch's
+   logits bit-equal to ``make_forward_step`` on the same file loaded by
+   ``OpenSetPredictor`` (cuDNN deterministic).  Then ``plot_all.
+   load_scores`` with ``--force`` (one child ``python -m ...script.
+   evaluate -g 0`` per loss, at its default batch 64; the entropic test
+   scores within 1e-4 of batch 256's, the logits within 1e-2 of their
+   largest) and ``conf_and_ccr_table`` (no PDF:
+   the GPU host has no matplotlib); and ``calculate_oscr_torch`` on the
+   card at 50,000 x 117 (bf16-rounded scores, so ties) against numpy
+   ``calculate_oscr``: every numpy threshold's ccr and fpr within 1e-6
+   of the device's at the same threshold, for all thresholds and for
+   1,000.  Prints each split's extraction rate (imgs/s, host clock) and
+   the OSCR device ms beside numpy's, each with the card's name and power
+   limit.  The phase launches no kernel of the port (a forward and a
+   float32 softmax, as the JAX extraction step).
 
 Phase 2b holds K5 (``ops/fused_block_bwd.py``, CUDA C++ built by ``nvcc``
 at first use) against its plain version at every distinct resnet50 site
@@ -128,7 +151,8 @@ The launch counts are zeroed just before phase 3 and read after phase 4
 (the serving path), zeroed again before phase 5's epochs and read after
 them (the train path), again around phase 6's epoch and validation
 (the fused train path), and around each of phase 7's worker runs: each
-path must have launched its kernels.
+path must have launched its kernels.  Phase 8's counts are zeroed and
+read too, and printed: its path runs none of them.
 Float32 matmuls and convolutions run without TF32 (both backend flags
 off), so float32 comparisons on the card are exact float32.
 
@@ -1730,7 +1754,8 @@ def same_checkpoints(torch, a, b):
 
 def worker_phase(torch, fl, fbb, out_dir):
     """Phase 7: ``worker(cfg)`` runs (a)-(d) on the card; returns the
-    launches of the kernels over the four runs."""
+    launches of the kernels over the four runs.  The checkpoints of (a)
+    and (d) stay for phase 8."""
     import shutil
 
     from openset_imagenet_tpu_torch.checkpoint import read_metadata
@@ -1792,7 +1817,6 @@ def worker_phase(torch, fl, fbb, out_dir):
         print(f"worker (b): the resumed _curr is bit-equal to (a)'s "
               f"({n} tensors, step {read_metadata(curr_b)['step']})")
         shutil.rmtree(cfg_b.output_directory)
-        shutil.rmtree(out)
 
         # (c) fused blocks + boundary mask, 1 epoch: the tail is dropped.
         cfg_c = worker_cfg(out_dir, "c", epochs=1, model={
@@ -1846,10 +1870,249 @@ def worker_phase(torch, fl, fbb, out_dir):
                     b["model_state_dict"]["logits.weight"],
                     c["model_state_dict"]["logits.weight"]),
                     "(d): _best weights equal _curr's")
-            shutil.rmtree(cfg_d.output_directory)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     return total
+
+
+# -- phase 8: evaluation ------------------------------------------------------
+
+TEST_ROWS = 2111          # 8 batches of 256 and a ragged tail of 63 rows
+OSCR_ROWS = 50_000
+
+
+def write_test_index(out_dir):
+    """The test CSV beside phase 7's val index: every known class ten
+    times, 475 negatives (-1) and 476 unknowns (-2)."""
+    rng = np.random.default_rng(SEED + 8)
+    n_neg = (TEST_ROWS - 10 * N_CLASSES) // 2
+    labels = np.concatenate([
+        np.repeat(np.arange(N_CLASSES), 10), -np.ones(n_neg, int),
+        -2 * np.ones(TEST_ROWS - 10 * N_CLASSES - n_neg, int)])
+    rng.shuffle(labels)
+    path = out_dir / "p1_test.csv"
+    with open(path, "w") as f:
+        for i, label in enumerate(labels):
+            f.write(f"n{max(label, 0):08d}/test_{i:05d}.JPEG,{label}\n")
+    return labels
+
+
+def device_ms_by_kernel(torch, fn):
+    """``{kernel: device ms}`` of one warm call of ``fn`` (torch.profiler),
+    largest first; the window opens with a marker kernel, as in
+    :func:`kernels_of`."""
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        if t > 0 and "spin_kernel" not in e.key:
+            ms[e.key[:48]] = round(t / 1e3, 4)
+    return dict(sorted(ms.items(), key=lambda kv: -kv[1]))
+
+
+def oscr_checks(torch, card):
+    """``calculate_oscr_torch`` on the card against numpy ``calculate_oscr``
+    at ``OSCR_ROWS`` x 117 (knowns, -1 and -2; scores rounded through bf16,
+    so scores and argmax tie): at every numpy threshold the device ccr and
+    fpr within 1e-6, for 0 and 1,000 thresholds.  Returns
+    ``{num_thresholds: (device ms, numpy ms)}``."""
+    from openset_imagenet_tpu_torch.ops import oscr
+
+    n, c = OSCR_ROWS, N_CLASSES + 1
+    rng = np.random.default_rng(SEED + 9)
+    gt = rng.integers(-2, c - 1, n)
+    scores = torch.from_numpy(rng.dirichlet(np.ones(c) * 0.2, n).astype(
+        np.float32)).bfloat16().float()
+    host = scores.numpy()
+    gt_dev, scores_dev = torch.from_numpy(gt).cuda(), scores.cuda()
+    t0 = time.perf_counter()
+    ccr_np, fpr_np = oscr.calculate_oscr(gt, host, unk_label=-1)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    kn = gt >= 0
+    ref_taus = np.unique(host[kn, gt[kn]])[:-1]
+    check(len(ref_taus) > 1000 and len(np.unique(host[kn, gt[kn]]))
+          < kn.sum(), "the OSCR input has no ties")
+    out = {}
+    for k in (0, 1000):
+        def run():
+            return oscr.calculate_oscr_torch(gt_dev, scores_dev,
+                                             unk_label=-1, num_thresholds=k)
+        ccr, fpr, taus = (t.cpu().numpy() for t in run())
+        check(ccr.shape == fpr.shape == taus.shape == ((k or n),),
+              f"OSCR k={k}: shapes {ccr.shape}")
+        if k == 0:
+            check(np.array_equal(taus[:kn.sum()], np.sort(host[kn, gt[kn]]))
+                  and np.isinf(taus[kn.sum():]).all(), "OSCR: threshold set")
+        found = np.isin(taus, ref_taus)
+        check(found.sum() >= (len(ref_taus) if k == 0 else k - 2),
+              f"OSCR k={k}: {found.sum()} thresholds found")
+        idx = np.searchsorted(ref_taus, taus[found])
+        err = max(np.abs(ccr[found] - ccr_np[idx]).max(),
+                  np.abs(fpr[found] - fpr_np[idx]).max())
+        check(err <= 1e-6, f"OSCR k={k}: |device - numpy| {err}")
+        if k == 0:
+            every = np.searchsorted(taus, ref_taus, side="right") - 1
+            check(np.array_equal(taus[every], ref_taus) and max(
+                np.abs(ccr[every] - ccr_np).max(),
+                np.abs(fpr[every] - fpr_np).max()) <= 1e-6,
+                "OSCR: a numpy threshold differs on the device")
+        ms = time_ms(run, reps=20, warmup=3)
+        if k == 0:
+            print(f"OSCR device time by kernel (profiler, one call): "
+                  f"{device_ms_by_kernel(torch, run)}")
+        out[k] = (ms, numpy_ms)
+        print(f"OSCR {n} x {c}, {k or 'all'} thresholds: device {ms:.4f} ms "
+              f"(CUDA events, median of 20), numpy calculate_oscr "
+              f"{numpy_ms:.1f} ms (host clock); max |device - numpy| "
+              f"{err:.3g} over {found.sum()} thresholds ({card})")
+    return out
+
+
+def evaluate_phase(torch, fl, fbb, out_dir):
+    """Phase 8: ``script.evaluate.main`` in-process on phase 7's run (a)
+    entropic ``_curr`` and ``_best`` and run (d)'s softmax and garbage
+    ``_curr``, without ``--model-variant``; the archives' checks; the
+    first test batch's logits bit-equal to ``make_forward_step`` on a
+    model loaded apart; ``plot_all.load_scores(--force)`` (a child
+    evaluate per loss, on the card) and ``conf_and_ccr_table``; OSCR on
+    the card against numpy.  Returns the launch counts of the phase."""
+    import os
+    import shutil
+
+    from openset_imagenet_tpu_torch.dataset import ImagenetDataset
+    from openset_imagenet_tpu_torch.inference import OpenSetPredictor
+    from openset_imagenet_tpu_torch.pipeline import (SyntheticReader,
+                                                     pipeline_from_dataset)
+    from openset_imagenet_tpu_torch.script import evaluate, plot_all
+    from openset_imagenet_tpu_torch.train import make_forward_step
+    from openset_imagenet_tpu_torch.tools import _card
+
+    card = _card.card_line()
+    batch = TRAIN_BATCH
+    test_labels = write_test_index(out_dir)
+    val_rows = len((out_dir / "p1_val.csv").read_text().splitlines())
+    exp = out_dir / "eval" / "Protocol_1"
+    shutil.rmtree(exp.parent, ignore_errors=True)
+    exp.mkdir(parents=True)
+    worker = out_dir / "worker"
+    for src in ("a/entropic_curr.pth", "a/entropic_best.pth",
+                "d_softmax/softmax_curr.pth", "d_garbage/garbage_curr.pth"):
+        os.replace(worker / src, exp / pathlib.Path(src).name)
+    common = ["--imagenet-directory", str(out_dir / "imagenet"),
+              "--protocol-directory", str(out_dir),
+              "--reader", "synthetic", "--workers", "8",
+              "--image-size", str(IMAGE)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for k in fl.LAUNCHES:
+        fl.LAUNCHES[k] = 0
+    fbb.LAUNCHES["fused_block_bwd"] = 0
+    try:
+        for loss, suffix in (("entropic", "_curr"), ("entropic", "_best"),
+                             ("softmax", "_curr"), ("garbage", "_curr")):
+            written = evaluate.main(
+                [loss, "1", "-o", str(exp), "--batch-size", str(batch),
+                 "--device", "cuda", *common]
+                + (["--use-best"] if suffix == "_best" else []))
+            n_out = N_CLASSES + (loss == "garbage")
+            for split, rows in (("val", val_rows), ("test", TEST_ROWS)):
+                w = written[split]
+                arr = np.load(w["path"])
+                gt, scores = arr["gt"], arr["scores"]
+                check(gt.dtype == np.float32 and gt.shape == (rows,) and
+                      arr["logits"].shape == scores.shape == (rows, n_out)
+                      and arr["features"].shape == (rows, n_out),
+                      f"evaluate {loss}{suffix} {split}: {gt.dtype} "
+                      f"{gt.shape} {scores.shape}")
+                check((gt == -1).any() and ((gt == -2).any() or
+                                            split == "val"),
+                      f"evaluate {loss}{suffix} {split}: label surgery")
+                check(all(np.isfinite(arr[key]).all() for key in arr.files)
+                      and np.abs(scores.sum(1) - 1).max() <= 1e-5,
+                      f"evaluate {loss}{suffix} {split}: scores")
+                if split == "test":
+                    check(np.array_equal(gt, test_labels.astype(np.float32)),
+                          f"evaluate {loss}{suffix}: test labels")
+                print(f"evaluate {loss}{suffix} {split}: {rows} rows in "
+                      f"{w['seconds']:.3f} s, {rows / w['seconds']:.1f} "
+                      f"imgs/s (host clock, get_arrays at batch {batch}; "
+                      f"{card})")
+            # The first test batch against a model loaded apart.
+            pred = OpenSetPredictor(exp / f"{loss}{suffix}.pth",
+                                    image_size=IMAGE, device="cuda")
+            check(pred.n_classes == n_out, f"{loss}: predictor n_classes")
+            pipe = pipeline_from_dataset(
+                ImagenetDataset(out_dir / "p1_test.csv",
+                                out_dir / "imagenet"), batch,
+                is_training=False, seed=42, num_workers=8,
+                reader=SyntheticReader(crop=IMAGE, seed=42))
+            try:
+                first = next(iter(pipe.epoch(0)))
+            finally:
+                pipe.close()
+            logits, _, _ = make_forward_step()(pred.model, first.images)
+            archived = np.load(written["test"]["path"])["logits"][:batch]
+            check(np.array_equal(logits.cpu().numpy(), archived),
+                  f"{loss}{suffix}: the first batch's logits differ from "
+                  "make_forward_step on a model loaded apart")
+            del pred
+        print("evaluate: the first test batch's logits bit-equal to "
+              "make_forward_step on a model loaded apart, each file")
+
+        # plot_all: one child evaluate per loss on the card, then the
+        # table (no PDF: matplotlib is not on the GPU host).
+        before = dict(np.load(exp / "entropic_test_arr_curr.npz"))
+        args = plot_all.get_args(
+            ["--protocols", "1", "--loss-functions", "entropic", "softmax",
+             "garbage", "--labels", "EOS", "S", "BG", "--force",
+             "--output-directory", str(exp.parent), "--imagenet-directory",
+             str(out_dir / "imagenet"), "--protocol-directory", str(out_dir),
+             "--reader", "synthetic", "--device", "cuda", "-g", "0",
+             "--table", str(exp.parent / "Results_last.tex")])
+        t0 = time.perf_counter()
+        scores, epochs = plot_all.load_scores(args)
+        child_s = time.perf_counter() - t0
+        after = scores[1]["entropic"]["test"]
+        check(np.array_equal(after["gt"], test_labels.astype(np.float32)),
+              "plot_all: the child's test labels")
+        # The child runs at evaluate's default batch 64, so cuDNN may take
+        # other algorithms than at batch 256: the bf16 logits round apart
+        # by an ulp here and there (scores 1.0e-05 apart on an H100).
+        # Another file or forward moves them by orders of magnitude more.
+        diff = float(np.abs(after["scores"] - before["scores"]).max())
+        logit_diff = float(np.abs(after["logits"] - before["logits"]).max()
+                           / np.abs(before["logits"]).max())
+        check(diff <= 1e-4, f"plot_all: the child's scores (batch 64) "
+              f"differ by {diff} from batch {batch}'s")
+        check(logit_diff <= 1e-2, f"plot_all: the child's logits (batch 64) "
+              f"differ by {logit_diff} of their largest from batch {batch}'s")
+        plot_all.conf_and_ccr_table(args, scores, epochs)
+        table = (exp.parent / "Results_last.tex").read_text()
+        rows = table.splitlines()
+        check(len(rows) == 3 and all(
+            row.startswith(f"$P_1$ - {label} & ") and row.endswith("\\\\")
+            for row, label in zip(rows, ("EOS", "S", "BG"))),
+            f"plot_all table: {table!r}")
+        print(f"plot_all: load_scores(--force) ran 3 child evaluates in "
+              f"{child_s:.1f} s (host clock; {card}); entropic test scores "
+              f"at batch 64 within {diff:.3g} of batch {batch}'s, logits "
+              f"within {logit_diff:.3g} of their largest")
+        print("plot_all table:\n" + table.rstrip())
+        launches = {**fl.LAUNCHES, **fbb.LAUNCHES}
+        oscr_checks(torch, card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    shutil.rmtree(worker, ignore_errors=True)
+    shutil.rmtree(exp.parent, ignore_errors=True)
+    return launches
 
 
 def loss_bound(name, b, c):
@@ -1990,6 +2253,12 @@ def main():
     worker_launches = worker_phase(torch, fl, fbb, out_dir)
     print(f"launches on the worker path: {worker_launches}")
     print(f"phase worker: ok ({time.perf_counter() - t0:.1f} s)")
+
+    # Phase 8 runs no kernel of the port: the forward and the softmax.
+    t0 = time.perf_counter()
+    eval_launches = evaluate_phase(torch, fl, fbb, out_dir)
+    print(f"launches on the evaluate path: {eval_launches}")
+    print(f"phase evaluate: ok ({time.perf_counter() - t0:.1f} s)")
 
     # Bounds at the shapes the times were taken at.
     replaces = {"entropic_fwd": (39, 256, 116),

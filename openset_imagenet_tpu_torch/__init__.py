@@ -18,8 +18,13 @@ schedules (with ``opt.ema`` and ``opt.accumulate_steps``), the train and
 eval steps and epoch loops, the worker (``worker(cfg)``: label surgery,
 ``_curr`` / ``_best`` checkpoints written atomically and in the
 background, γ selection, resume, preemption, early stopping, the scalar
-record and log file; ``python -m openset_imagenet_tpu_torch.script.train``)
-and :class:`OpenSetPredictor`.
+record and log file; ``python -m openset_imagenet_tpu_torch.script.train``),
+:class:`OpenSetPredictor`, and the work after training: extraction
+(``get_arrays``), OSCR on the host and on the device
+(``calculate_oscr``, ``calculate_oscr_torch``), and the CLIs
+``script.evaluate``, ``script.plot_all``, ``script.train_all`` and
+``script.protocols`` (with ``protocol`` and ``wordnet``).  matplotlib
+(``plots``) and PyYAML (configs) are imported only by what needs them.
 """
 
 from __future__ import annotations
@@ -48,6 +53,9 @@ _EXPORTS = {
     "worker": "train",
     "EarlyStopping": "ops.losses",
     "AsyncCheckpointer": "checkpoint",
+    "get_arrays": "train",
+    "calculate_oscr": "ops.oscr",
+    "calculate_oscr_torch": "ops.oscr",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -21,6 +21,7 @@ native msgpack checkpoints is not ported yet (ROADMAP Queue 1 item 7).
 
 from __future__ import annotations
 
+import pickle
 import queue
 import threading
 import zipfile
@@ -327,12 +328,32 @@ def infer_n_classes(checkpoint) -> int:
     return int(sd["logits.weight"].shape[0])
 
 
-def resolve_model_cfg(variant: Optional[str] = None) -> dict:
+def infer_arch(checkpoint) -> dict:
+    """Architecture metadata a checkpoint was saved with.
+
+    ``{"variant": str, "space_to_depth": bool}`` from the ``extra.arch``
+    the port's worker writes into every ``.pth``; ``{}`` for a reference
+    ``.pth`` (no ``extra``), a missing or unreadable file (JAX
+    ``checkpoint.py:372-393``).  Read memory-mapped, without loading the
+    weights.
+    """
+    try:
+        meta = read_metadata(checkpoint)
+    except (OSError, ValueError, RuntimeError, pickle.UnpicklingError):
+        return {}
+    arch = (meta.get("extra") or {}).get("arch") or {}
+    return dict(arch) if isinstance(arch, dict) else {}
+
+
+def resolve_model_cfg(checkpoint, variant: Optional[str] = None) -> dict:
     """Model geometry for rebuilding a checkpoint's architecture.
 
-    A reference ``.pth`` carries no architecture metadata, so an explicit
-    ``variant`` wins and the default is the reference's resnet50 -- the
-    rule the JAX package applies to the same files (``checkpoint.py:
-    396-407``).
+    ``{"variant": str, "space_to_depth": bool}``: an explicit ``variant``
+    wins, then the arch stored in the checkpoint (:func:`infer_arch`),
+    then the reference's resnet50 without space-to-depth -- the rule of
+    JAX ``checkpoint.py:396-407``, shared by ``script/evaluate.py`` and
+    :class:`~.inference.OpenSetPredictor`.
     """
-    return {"variant": variant or "resnet50", "space_to_depth": False}
+    arch = infer_arch(checkpoint)
+    return {"variant": variant or arch.get("variant", "resnet50"),
+            "space_to_depth": bool(arch.get("space_to_depth", False))}

@@ -32,8 +32,9 @@ class OpenSetPredictor:
         """Args:
             checkpoint: reference-layout ``.pth`` from training.
             n_classes: logits width; ``None`` reads it from the logits head.
-            variant: ResNet variant; ``None`` -> resnet50 (a ``.pth``
-                carries no architecture metadata).
+            variant: ResNet variant; ``None`` -> the arch stored in the
+                checkpoint (``extra.arch`` of the port's ``.pth``), else
+                resnet50 (a reference ``.pth`` carries none).
             image_size: crop size the model expects (default 224).
             threshold: rejection threshold; 0 disables rejection.
             mode: ``'softmax'`` (reject if max softmax < threshold) or
@@ -54,7 +55,7 @@ class OpenSetPredictor:
         self.mode = mode
         self.has_background = bool(has_background)
         self.device = torch.device(device)
-        cfg = NameSpace({"model": resolve_model_cfg(variant)})
+        cfg = NameSpace({"model": resolve_model_cfg(checkpoint, variant)})
         model = build_model(cfg, self.n_classes, device="meta")
         model.to_empty(device=self.device)
         load_checkpoint(checkpoint, model)

@@ -5,13 +5,16 @@ Counterpart of :mod:`openset_imagenet_tpu.ops.metrics`:
 accumulates on the device; :func:`confidence` is the reference's
 whole-array signature (reference ``metrics.py:8-42``).  The regime
 parameters come from :func:`loss_regime_params` (reference
-``train.py:156-163``).
+``train.py:156-163``).  :func:`auc_score_binary` and
+:func:`auc_score_multiclass` are host-side sklearn (reference
+``metrics.py:65-106``), imported when called.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -73,6 +76,30 @@ def predict_objectosphere(logits, features, threshold: float) -> Tensor:
     pred_class = torch.where(norms * pred_score < threshold, -1.0,
                              pred_class.float())
     return torch.stack((pred_class, pred_score), dim=1)
+
+
+def auc_score_binary(target_labels, pred_scores, unk_class: int = -1):
+    """Binary AUC of known (+1) vs unknown (-1) on the max score
+    (reference ``metrics.py:65-92``)."""
+    import sklearn.metrics
+
+    target_labels = np.asarray(target_labels).copy()
+    pred_scores = np.asarray(pred_scores)
+    max_scores = np.max(pred_scores, axis=1)
+    known = target_labels != unk_class
+    target_labels[known] = 1
+    target_labels[~known] = -1
+    return sklearn.metrics.roc_auc_score(target_labels, max_scores)
+
+
+def auc_score_multiclass(target_labels, pred_scores):
+    """One-vs-rest multiclass AUC (reference ``metrics.py:95-106``)."""
+    import sklearn.metrics
+
+    target_labels = np.asarray(target_labels)
+    pred_scores = np.asarray(pred_scores)
+    return sklearn.metrics.roc_auc_score(target_labels, pred_scores,
+                                         multi_class="ovr")
 
 
 def loss_regime_params(loss_type: str, n_classes: int) -> dict:

@@ -21,7 +21,7 @@ from ..train import worker
 
 def get_args(argv=None):
     parser = argparse.ArgumentParser(
-        "train_imagenet",
+        "train_imagenet_torch",
         description="Train an open-set ImageNet model (PyTorch port)")
     parser.add_argument("configuration", type=pathlib.Path,
                         help="Filename of the training configuration (YAML)")

@@ -27,7 +27,7 @@ import random
 import signal
 import time
 from collections import defaultdict
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -504,6 +504,45 @@ def validate(model, pipeline, epoch: int, eval_step: Callable,
                                     sums["neg_count"])
 
 
+def get_arrays(model, pipeline, forward_step: Optional[Callable] = None
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """``(targets, logits, features, scores)`` of a whole split, numpy.
+
+    The JAX ``get_arrays`` (``train.py:652-690``, reference ``train.py:
+    200-234``): the same tuple in the same order, ``targets`` float32 (a
+    reference quirk), padded rows dropped by the batch mask.  The kept
+    rows stay on the device, selected by indices made from the host mask
+    (no wait per batch), and are copied to the host once at the end.  An
+    empty split gives ``(0,)``, ``(0, C)``, ``(0, F)`` and ``(0, C)``
+    float32 arrays sized from the ``logits`` and ``fc`` heads.  A process
+    of a multi-process launch raises (Queue 1 item 8).
+    """
+    _check_one_process("multi-process extraction (get_arrays)")
+    if forward_step is None:
+        forward_step = make_forward_step()
+    device = _device_of(model)
+    parts = []
+    for batch in pipeline.epoch(0):
+        logits, features, scores = forward_step(model, batch.images)
+        mask = np.asarray(batch.mask) > 0
+        labels = _on(device, np.asarray(batch.labels))
+        rows = (labels, logits, features, scores)
+        if not mask.all():
+            keep = _on(device, np.flatnonzero(mask))
+            rows = tuple(t.index_select(0, keep) for t in rows)
+        parts.append(rows)
+    if not parts:
+        n_out = model.logits.weight.shape[0]
+        n_feat = model.resnet_base.fc.weight.shape[0]
+        return (np.zeros((0,), np.float32),
+                np.zeros((0, n_out), np.float32),
+                np.zeros((0, n_feat), np.float32),
+                np.zeros((0, n_out), np.float32))
+    labels, logits, features, scores = (
+        torch.cat(column).cpu().numpy() for column in zip(*parts))
+    return labels.astype(np.float32), logits, features, scores
+
+
 # -- worker: one (protocol, loss) run (train.py:69-112, 706-737, 807-1303) --
 
 def set_seeds(seed: int) -> torch.Generator:
@@ -586,14 +625,20 @@ def _not_ported(what: str) -> NotImplementedError:
                                "item 8, multi-GPU)")
 
 
-def _check_single_process(cfg) -> None:
-    """The multi-process, shard_map and ZeRO-1 modes wait for Queue 1
-    item 8."""
+def _check_one_process(what: str) -> None:
+    """A process started by a multi-process launch raises: multi-GPU runs
+    wait for Queue 1 item 8."""
     launch = ("OSI_COORDINATOR", "OSI_DISTRIBUTED")
     if any(os.environ.get(k) for k in launch) or max(
             int(os.environ.get(k, "1") or 1)
             for k in ("WORLD_SIZE", "OSI_NUM_PROCESSES")) > 1:
-        raise _not_ported("a multi-process run")
+        raise _not_ported(what)
+
+
+def _check_single_process(cfg) -> None:
+    """The multi-process, shard_map and ZeRO-1 modes wait for Queue 1
+    item 8."""
+    _check_one_process("a multi-process run")
     if (getattr(cfg, "parallel_mode", "gspmd") or "gspmd") == "shard_map":
         raise _not_ported("parallel_mode: shard_map")
     if getattr(cfg.opt, "zero1", False):

@@ -838,3 +838,73 @@ def test_k7_refuses_what_it_does_not_take(cuda):
         sp.relu_mask(x, x[:1])
     with pytest.raises(ValueError, match="operands on"):
         sp.axpy(x, x.cpu())
+
+
+# -- extraction and OSCR on the card ------------------------------------------
+
+
+@pytest.mark.parametrize("num_thresholds", [0, 1000])
+def test_device_oscr_on_the_card_matches_numpy(cuda, num_thresholds):
+    """``calculate_oscr_torch`` on CUDA tensors: the CPU run's bits, and at
+    every numpy threshold the numpy ccr and fpr within 1e-6 (scores
+    rounded through bfloat16, so scores and argmax tie)."""
+    from openset_imagenet_tpu_torch.ops import oscr
+
+    rng = np.random.default_rng(9)
+    n, c = 5000, 117
+    gt = rng.integers(-2, c, n)
+    scores = torch.from_numpy(rng.dirichlet(np.ones(c) * 0.2, n).astype(
+        np.float32)).bfloat16().float()
+    got = [t.cpu() for t in oscr.calculate_oscr_torch(
+        torch.from_numpy(gt).to(cuda), scores.to(cuda), unk_label=-1,
+        num_thresholds=num_thresholds)]
+    want = oscr.calculate_oscr_torch(gt, scores, unk_label=-1,
+                                     num_thresholds=num_thresholds)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    ccr, fpr, taus = (t.numpy() for t in got)
+    ccr_np, fpr_np = oscr.calculate_oscr(gt, scores.numpy(), unk_label=-1)
+    kn = gt >= 0
+    ref_taus = np.unique(scores.numpy()[kn, gt[kn]])[:-1]
+    found = np.isin(taus, ref_taus)
+    idx = np.searchsorted(ref_taus, taus[found])
+    np.testing.assert_allclose(ccr[found], ccr_np[idx], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(fpr[found], fpr_np[idx], rtol=0, atol=1e-6)
+    assert found.sum() >= min(len(ref_taus), num_thresholds or n) // 2
+
+
+def test_get_arrays_on_the_card_matches_the_cpu(cuda):
+    """``get_arrays`` of a tiny bf16 model on the card against the same
+    model on the CPU: labels equal and float32, the masked rows dropped,
+    scores within 2e-2 and logits and features within 2e-2 of their
+    largest value (cuDNN and the CPU round bf16 convolutions apart)."""
+    import types
+
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.config import NameSpace
+
+    cfg = NameSpace({"model": {"variant": "tiny"}})
+    cpu = engine.build_model(cfg, 5, device="cpu",
+                             generator=torch.Generator().manual_seed(3))
+    card = engine.build_model(cfg, 5, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(2)
+    batches = []
+    for i in range(3):
+        mask = np.ones(16, np.float32)
+        if i == 2:
+            mask[11:] = 0
+        batches.append(types.SimpleNamespace(
+            images=rng.integers(0, 256, (16, 32, 32, 3), np.uint8),
+            labels=rng.integers(-2, 5, 16).astype(np.int32), mask=mask))
+    pipe = types.SimpleNamespace(epoch=lambda e: iter(batches))
+    got = engine.get_arrays(card, pipe)
+    want = engine.get_arrays(cpu, pipe)
+    assert got[0].dtype == np.float32 and got[0].shape == (43,)
+    np.testing.assert_array_equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == w.shape and g.dtype == w.dtype == np.float32
+    for g, w in zip(got[1:3], want[1:3]):
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=2e-2 * np.abs(w).max())
+    np.testing.assert_allclose(got[3], want[3], rtol=0, atol=2e-2)

@@ -233,3 +233,30 @@ def test_import_leaves_jax_unloaded():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_post_training_modules_leave_jax_unloaded():
+    """The extraction, evaluation and protocol modules import neither jax
+    nor the JAX package, nor matplotlib, sklearn or PyYAML (imported when
+    a function needs them); ``plots`` imports matplotlib and no jax."""
+    code = (
+        "import sys\n"
+        "import openset_imagenet_tpu_torch.ops.oscr\n"
+        "import openset_imagenet_tpu_torch.util\n"
+        "import openset_imagenet_tpu_torch.script.evaluate\n"
+        "import openset_imagenet_tpu_torch.script.plot_all\n"
+        "import openset_imagenet_tpu_torch.script.train_all\n"
+        "import openset_imagenet_tpu_torch.script.protocols\n"
+        "import openset_imagenet_tpu_torch.protocol\n"
+        "import openset_imagenet_tpu_torch.wordnet\n"
+        "import openset_imagenet_tpu_torch.tools.drive_cli\n"
+        "from openset_imagenet_tpu_torch import get_arrays, "
+        "calculate_oscr_torch\n"
+        "heavy = ('jax', 'flax', 'optax', 'openset_imagenet_tpu', 'yaml',\n"
+        "         'matplotlib', 'sklearn', 'PIL', 'triton')\n"
+        "print([m for m in sys.modules if m.split('.')[0] in heavy])\n"
+        "import openset_imagenet_tpu_torch.plots\n"
+        "print([m for m in sys.modules if m.split('.')[0] in heavy[:4]])\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.split() == ["[]", "[]"], out.stdout
