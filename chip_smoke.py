@@ -109,7 +109,37 @@ from a seed), and checks what comes out:
    1,000.  Prints each split's extraction rate (imgs/s, host clock) and
    the OSCR device ms beside numpy's, each with the card's name and power
    limit.  The phase launches no kernel of the port (a forward and a
-   float32 softmax, as the JAX extraction step).
+   float32 softmax, as the JAX extraction step).  It keeps (a)'s
+   ``_best`` and its val arrays for phase 9;
+9. prediction paths and the daemon, from phase 7's (a) entropic ``_best``
+   and phase 8's val arrays of it, on the card with cuDNN deterministic:
+   ``calibrate_threshold`` at FPR 0.1 in both modes equal to
+   ``threshold_at_fpr`` of the same measure; ``script.predict.main``
+   in-process over a listing of 600 placeholder paths (``--reader
+   synthetic``, batch 256: chunks of 256, 256 and 88), streamed and
+   ``--no-stream``, with ``--features-output``: the CSVs byte-equal, the
+   archives' arrays byte-equal (the zip's timestamps differ), every row
+   bit-equal to ``OpenSetPredictor.predict`` on the same pixels at the
+   same chunks; ``--threshold-at-fpr 0.1``: a row is -1 exactly when its
+   measure is below the threshold; ``predict_stream`` and serial
+   ``predict()`` with pinned and pageable host staging, in turns.  Then
+   ``PredictionServer`` in-process (``max_batch`` 64, window 2 ms) whose
+   ``decode`` takes raw 224x224x3 bodies (the GPU host has neither
+   libjpeg nor PIL; the line says what ``native_available()`` gave):
+   healthz, a single request and a JSON batch of 5 bit-equal to
+   ``predict`` at their buckets, ``?features=1``, 404, 400 and 413;
+   closed-loop clients at concurrency 1, 4, 16 and 64 over 512 requests
+   (imgs/s, p50 / p99 ms, ``mean_batch`` > 1 at 16, no error, answers
+   within phase 3's bucket rule against bucket 64); a poisoned
+   ``_gather``: the request in hand and the next fail at once and healthz
+   answers 503 ``dead`` within a second; ``close()``.  The first forward
+   of each cold bucket 1 ... 64 beside its warm time comes from a fresh
+   process (``chip_smoke.py --cold-buckets CKPT``).  Last, ``python -m
+   openset_imagenet_tpu_torch.script.serve CKPT auto --port 0
+   --max-batch 64`` as a process: its ``http://`` line (time to ready,
+   warm-up included), healthz 200, ``/stats``, SIGTERM -> exit 0 within
+   60 s.  Launch counts are zeroed and read around the phase: it runs
+   none of the eight kernels.
 
 Phase 2b holds K5 (``ops/fused_block_bwd.py``, CUDA C++ built by ``nvcc``
 at first use) against its plain version at every distinct resnet50 site
@@ -151,8 +181,8 @@ The launch counts are zeroed just before phase 3 and read after phase 4
 (the serving path), zeroed again before phase 5's epochs and read after
 them (the train path), again around phase 6's epoch and validation
 (the fused train path), and around each of phase 7's worker runs: each
-path must have launched its kernels.  Phase 8's counts are zeroed and
-read too, and printed: its path runs none of them.
+path must have launched its kernels.  Phase 8's and phase 9's counts
+are zeroed and read too, and printed: their paths run none of them.
 Float32 matmuls and convolutions run without TF32 (both backend flags
 off), so float32 comparisons on the card are exact float32.
 
@@ -162,8 +192,12 @@ version, device ms of the kernel and of the plain version, the least time
 the card could take at the same shape (``bound_ms``, set by ``bytes`` or
 ``operations``: NVIDIA's H100 peaks, ``openset_imagenet_tpu_torch/tools/
 _card.py``) and the time of one PyTorch call computing the same function
-where there is one (``library_ms``: ``F.cross_entropy`` for K3,
-``torch.add`` for K7's axpy; else null).  The last line is ``{"ok": true,
+where there is one (``library_ms``: ``F.cross_entropy`` against the
+target matrix for K1 at unk_weight 1 (checked within rtol 1e-5 of K1's
+mean; printed at [256, 116] and [64, 116]), ``F.cross_entropy`` with
+class weights for K3, ``torch.add`` for K7's axpy, and
+``torch.ops.aten.threshold_backward`` for K7's relu-mask (checked bit
+for bit); else null).  The last line is ``{"ok": true,
 "device": {...}}``.  Any failed check raises, so the exit code is non-zero
 and no result line is printed.  Without a CUDA device the script exits
 non-zero at once.  Build outputs (Triton's cache, the K5 and K6
@@ -277,6 +311,21 @@ def kernel_checks(torch, fl):
             labels64 = labels.long()
             library["ce_fwd"] = graph_ms(lambda: F.cross_entropy(
                 logits, labels64, weight=class_w, reduction="sum"))
+        if name == "p1":
+            # One library call computes K1's mean on an unmasked batch at
+            # unk_weight 1: the cross-entropy against the target matrix
+            # (one-hot for a known row, 1/C for a negative), formed once.
+            targets = torch.where(
+                labels[:, None] >= 0,
+                F.one_hot(labels.long().clamp(min=0), c).float(),
+                torch.full((b, c), 1.0 / c, device=dev))
+            ce = F.cross_entropy(logits, targets)
+            k1 = fl.entropic_fwd(logits, labels, mask, 1.0)[2]
+            check(torch.allclose(ce, k1, rtol=1e-5, atol=0),
+                  f"K1 [{b},{c}] at unk_weight 1: mean {float(k1)} vs "
+                  f"F.cross_entropy {float(ce)}")
+            library[("entropic_fwd", b)] = graph_ms(
+                lambda: F.cross_entropy(logits, targets))
         runs = {
             "entropic_fwd": (
                 lambda: fl.entropic_fwd(logits, labels, mask, 0.5),
@@ -320,6 +369,11 @@ def kernel_checks(torch, fl):
     for kname, name, b, c, err, ms, pms, dms, pdms in rows:
         if main_shape[kname] == (name, b, c):
             timing[kname] = (dms, pdms)
+        if kname == "entropic_fwd" and name == "p1":
+            print(f"K1 entropic_fwd [{b},{c}]: dev_ms {dms:.5f}, library "
+                  f"F.cross_entropy(logits, targets) "
+                  f"{library[('entropic_fwd', b)]:.5f}")
+    library["entropic_fwd"] = library[("entropic_fwd", 256)]
     return max_err, timing, library
 
 
@@ -940,7 +994,9 @@ def k7_checks(torch, sp):
                           .to(torch.bfloat16))
     runs = {"stream_axpy": (sp.axpy, sp.axpy_plain,
                             lambda x, b: torch.add(b, x, alpha=sp.AXPY_A)),
-            "stream_relu_mask": (sp.relu_mask, sp.relu_mask_plain, None)}
+            "stream_relu_mask": (
+                sp.relu_mask, sp.relu_mask_plain,
+                lambda g, m: torch.ops.aten.threshold_backward(g, m, 0))}
     for shape in K7_SHAPES:
         a, b = draw(shape), draw(shape)
         for name, (kernel, plain, library) in runs.items():
@@ -951,6 +1007,11 @@ def k7_checks(torch, sp):
                   "differ")
             check(got.dtype == torch.bfloat16 and torch.equal(got, ref),
                   f"{name} {shape}: not bit-equal to the plain version")
+            if name == "stream_relu_mask":
+                lib = library(a, b)
+                check(lib.dtype == got.dtype and torch.equal(
+                    lib.view(torch.int16), got.view(torch.int16)),
+                    f"{name} {shape}: threshold_backward's bits differ")
             max_err[name] = max(max_err.get(name, 0.0), float(
                 (got.float() - ref.float()).abs().max()))
     # Timed over four operand pairs in turn (103 MB, twice the L2), so each
@@ -1983,7 +2044,8 @@ def evaluate_phase(torch, fl, fbb, out_dir):
     first test batch's logits bit-equal to ``make_forward_step`` on a
     model loaded apart; ``plot_all.load_scores(--force)`` (a child
     evaluate per loss, on the card) and ``conf_and_ccr_table``; OSCR on
-    the card against numpy.  Returns the launch counts of the phase."""
+    the card against numpy.  Returns the launch counts of the phase, and
+    the paths of (a)'s ``_best`` and of its val arrays, kept for phase 9."""
     import os
     import shutil
 
@@ -2110,9 +2172,459 @@ def evaluate_phase(torch, fl, fbb, out_dir):
         oscr_checks(torch, card)
     finally:
         torch.backends.cudnn.deterministic = deterministic
+    # (a)'s entropic _best and its val arrays stay for phase 9.
+    kept = out_dir / "serve"
+    shutil.rmtree(kept, ignore_errors=True)
+    kept.mkdir()
+    for name in ("entropic_best.pth", "entropic_val_arr_best.npz"):
+        os.replace(exp / name, kept / name)
     shutil.rmtree(worker, ignore_errors=True)
     shutil.rmtree(exp.parent, ignore_errors=True)
-    return launches
+    return launches, kept / "entropic_best.pth", \
+        kept / "entropic_val_arr_best.npz"
+
+
+# -- phase 9: prediction paths and the daemon ---------------------------------
+
+PREDICT_PATHS = 600       # two chunks of 256 and a ragged 88
+PREDICT_BATCH = 256
+SERVE_BATCH = 64
+SERVE_IMAGES = 512
+CONCURRENCY = (1, 4, 16, 64)
+
+
+def cold_buckets(ckpt):
+    """``python3 chip_smoke.py --cold-buckets CKPT``: in a fresh process, a
+    predictor on the card without warm-up; prints one JSON line with the
+    first forward of each bucket 1 ... 64 and its warm median, in ms
+    (host clock, each call ending in the scores' copy to the host)."""
+    import torch
+
+    from openset_imagenet_tpu_torch.inference import OpenSetPredictor
+
+    if not torch.cuda.is_available():
+        return 1
+    pred = OpenSetPredictor(ckpt, device="cuda")
+    out = {}
+    b = 1
+    while b <= SERVE_BATCH:
+        images = np.zeros((b, IMAGE, IMAGE, 3), np.uint8)
+        t0 = time.perf_counter()
+        pred.predict(images)
+        first = (time.perf_counter() - t0) * 1e3
+        warm = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            pred.predict(images)
+            warm.append((time.perf_counter() - t0) * 1e3)
+        out[b] = [first, statistics.median(warm)]
+        b *= 2
+    print(json.dumps({"cold_buckets_ms": out}))
+    return 0
+
+
+def bucket_rule(label, got_cls, got_measure, ref_cls, ref_scores):
+    """Phase 3's bucket-independence rule against the reference bucket's
+    softmax rows: the measure (max softmax) within 5e-2, a class changed
+    only at a near-tie of the reference's top two.  Returns the largest
+    difference."""
+    d = float(np.abs(np.asarray(got_measure) - ref_scores.max(-1)).max())
+    check(d <= 5e-2, f"{label}: scores {d} from the reference bucket's")
+    top2 = np.sort(ref_scores, -1)[:, -2:]
+    for i in np.nonzero(np.asarray(got_cls) != ref_cls)[0]:
+        check(top2[i, 1] - top2[i, 0] < 5e-2,
+              f"{label}: row {i} changed class away from a near-tie")
+    return d
+
+
+def predict_cli_phase(inference, best, val_arr, card):
+    """Phase 9, item 2: ``script.predict.main`` in-process on 600
+    placeholder paths with the synthetic reader, streamed and serial,
+    then with ``--threshold-at-fpr``; the pinned staging against pageable
+    host buffers, in turns."""
+    from openset_imagenet_tpu_torch.pipeline import SyntheticReader
+    from openset_imagenet_tpu_torch.script import predict
+
+    root = best.parent / "placeholders"
+    root.mkdir(exist_ok=True)
+    names = [f"img_{i:05d}.JPEG" for i in range(PREDICT_PATHS)]
+    for name in names:
+        (root / name).touch()
+    listing = best.parent / "listing.txt"
+    listing.write_text("".join(f"{n},0\n" for n in names))
+    paths = [str(root / n) for n in names]
+
+    def run(tag, *extra):
+        out = best.parent / f"{tag}.csv"
+        npz = best.parent / f"{tag}.npz"
+        t0 = time.perf_counter()
+        rc = predict.main(
+            [str(best), "auto", str(listing), "--imagenet-directory",
+             str(root), "--reader", "synthetic", "--device", "cuda",
+             "--image-size", str(IMAGE),
+             "--batch-size", str(PREDICT_BATCH), "--features-output",
+             str(npz), "-o", str(out), *extra])
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"predict {tag}: exit code {rc}")
+        return out, np.load(npz), seconds
+
+    streamed, s_npz, s_sec = run("streamed")
+    serial, n_npz, n_sec = run("serial", "--no-stream")
+    check(streamed.read_bytes() == serial.read_bytes(),
+          "predict: the streamed and serial CSVs differ")
+    check(sorted(s_npz.files) == sorted(n_npz.files) ==
+          ["features", "paths", "scores"] and all(
+              s_npz[k].dtype == n_npz[k].dtype and s_npz[k].shape ==
+              n_npz[k].shape and s_npz[k].tobytes() == n_npz[k].tobytes()
+              for k in s_npz.files),
+          "predict: the streamed and serial archives' arrays differ")
+    rows = [r.split(",") for r in streamed.read_text().splitlines()[1:]]
+    check([r[0] for r in rows] == paths, "predict: the CSV's paths")
+    check(s_npz["scores"].shape == (PREDICT_PATHS, N_CLASSES) and
+          np.isfinite(s_npz["scores"]).all(), "predict: the archive")
+
+    # Every row against predict() on the same pixels at the same chunks.
+    pred = inference.OpenSetPredictor(best, device="cuda")
+    reader = SyntheticReader(crop=IMAGE, seed=0)
+    for i in range(0, PREDICT_PATHS, PREDICT_BATCH):
+        chunk = paths[i:i + PREDICT_BATCH]
+        cls, score, feats, scores = pred.predict(
+            np.stack([reader(p, None) for p in chunk]), return_arrays=True)
+        check([r[1:] for r in rows[i:i + PREDICT_BATCH]] ==
+              [[str(int(c)), f"{float(v):.6f}"] for c, v in zip(cls, score)]
+              and np.array_equal(s_npz["scores"][i:i + len(chunk)], scores)
+              and np.array_equal(s_npz["features"][i:i + len(chunk)],
+                                 feats),
+              f"predict: rows {i}... differ from predict() on the same "
+              "pixels")
+    print(f"predict CLI, resnet50 {IMAGE} px, {PREDICT_PATHS} paths at "
+          f"batch {PREDICT_BATCH}, synthetic reader: streamed "
+          f"{PREDICT_PATHS / s_sec:.1f} imgs/s ({s_sec:.3f} s), serial "
+          f"{PREDICT_PATHS / n_sec:.1f} imgs/s ({n_sec:.3f} s), the model "
+          f"load included (host clock; {card}); CSVs byte-equal, archives' "
+          "arrays byte-equal, every row bit-equal to predict()")
+
+    fpr, f_npz, _ = run("calibrated", "--threshold-at-fpr", "0.1",
+                        "--calibrate", str(val_arr))
+    threshold = inference.calibrate_threshold(val_arr, 0.1, "softmax",
+                                              False)
+    crows = [r.split(",") for r in fpr.read_text().splitlines()[1:]]
+    rejected = np.array([int(r[1]) == -1 for r in crows])
+    measure = f_npz["scores"].max(-1)  # the softmax mode's measure
+    check(len(crows) == PREDICT_PATHS and np.array_equal(
+        rejected, measure < threshold) and np.array_equal(
+        f_npz["scores"], s_npz["scores"]),
+        "predict --threshold-at-fpr: a row is -1 iff its score < threshold")
+    print(f"predict --threshold-at-fpr 0.1: threshold {threshold:.6g}, "
+          f"{sum(rejected)} of {PREDICT_PATHS} rows rejected")
+
+    # The pinned staging buffer against a pageable one, in turns.
+    pageable = lambda shape, device: np.empty(shape, np.uint8)
+    pinned = inference._host_buffer
+    turns = []
+    try:
+        for name, buffer in (("pinned", pinned), ("pageable", pageable),
+                             ("pageable", pageable), ("pinned", pinned)):
+            inference._host_buffer = buffer
+            pred._reader = reader
+            t0 = time.perf_counter()
+            for _ in pred.predict_stream(paths, batch_size=PREDICT_BATCH):
+                pass
+            stream_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for i in range(0, PREDICT_PATHS, PREDICT_BATCH):
+                pred.predict(paths[i:i + PREDICT_BATCH])
+            serial_s = time.perf_counter() - t0
+            turns.append(f"{name} {PREDICT_PATHS / stream_s:.1f} / "
+                         f"{PREDICT_PATHS / serial_s:.1f}")
+    finally:
+        inference._host_buffer = pinned
+    print(f"predict_stream / serial predict(), imgs/s at batch "
+          f"{PREDICT_BATCH}, host staging in turns: {'; '.join(turns)} "
+          f"(host clock; {card})")
+    del pred
+
+
+def serve_load(server_url, images, clients):
+    """Closed-loop clients over keep-alive connections, ``SERVE_IMAGES``
+    requests of one raw image in all; returns (seconds, latencies ms,
+    {request index: (image index, response)})."""
+    import http.client
+    import threading
+    from urllib.parse import urlsplit
+
+    host, port = urlsplit(server_url).hostname, urlsplit(server_url).port
+    lock = threading.Lock()
+    counter = iter(range(SERVE_IMAGES))
+    latencies, answers, errors = [], {}, []
+
+    def client():
+        conn = http.client.HTTPConnection(host, port, timeout=120)
+        try:
+            while True:
+                with lock:
+                    k = next(counter, None)
+                if k is None:
+                    return
+                img = k % len(images)
+                t0 = time.perf_counter()
+                conn.request("POST", "/v1/predict", body=images[img].tobytes(),
+                             headers={"Content-Type":
+                                      "application/octet-stream"})
+                resp = conn.getresponse()
+                body = resp.read()
+                ms = (time.perf_counter() - t0) * 1e3
+                if resp.status != 200:
+                    errors.append((resp.status, body[:200]))
+                    return
+                with lock:
+                    latencies.append(ms)
+                    answers[k] = (img, json.loads(body))
+        except Exception as exc:  # reported by the check below
+            errors.append(repr(exc))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    seconds = time.perf_counter() - t0
+    check(not errors and len(answers) == SERVE_IMAGES,
+          f"{clients} clients: {len(answers)} answers, errors {errors[:3]}")
+    return seconds, latencies, answers
+
+
+def daemon_phase(inference, serve, best, card):
+    """Phase 9, item 3: ``PredictionServer`` in-process with a decode of
+    raw pixel bodies (the host has no JPEG decoder)."""
+    import base64
+    import urllib.error
+    import urllib.request
+
+    from openset_imagenet_tpu_torch.native.jpeg import native_available
+
+    class RawServer(serve.PredictionServer):
+        """Bodies of S*S*3 raw bytes -> uint8 [S, S, 3]."""
+
+        def decode(self, blobs):
+            size = self.predictor.image_size
+            if any(len(b) != size * size * 3 for b in blobs):
+                raise ValueError(f"a body is not {size}x{size}x3 raw bytes")
+            return [np.frombuffer(b, np.uint8).reshape(size, size, 3)
+                    for b in blobs]
+
+    print(f"daemon decode: raw {IMAGE}x{IMAGE}x3 uint8 bodies through "
+          f"PredictionServer.decode (the card's host has no JPEG decoder; "
+          f"native_available() = {native_available()})")
+    pred = inference.OpenSetPredictor(best, device="cuda")
+    pred.warmup(SERVE_BATCH)
+    srv = RawServer(("127.0.0.1", 0), pred, max_batch=SERVE_BATCH,
+                    window_ms=2.0).start()
+    host, port = srv.server_address[:2]
+    url = f"http://{host}:{port}"
+
+    def request(path, body=None, ctype="application/octet-stream"):
+        req = urllib.request.Request(url + path, data=body,
+                                     method="GET" if body is None
+                                     else "POST",
+                                     headers={"Content-Type": ctype})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as err:
+            return err.code, json.loads(err.read())
+
+    images = np.random.default_rng(SEED + 9).integers(
+        0, 256, (SERVE_BATCH, IMAGE, IMAGE, 3), np.uint8)
+    try:
+        code, info = request("/healthz")
+        check(code == 200 and info["status"] == "ok" and
+              info["n_classes"] == N_CLASSES and info["image_size"] == IMAGE
+              and info["batcher"]["alive"], f"healthz: {code} {info}")
+        one = request("/v1/predict", images[0].tobytes())[1]
+        batch = request("/v1/predict", json.dumps({"images": [
+            base64.b64encode(im.tobytes()).decode() for im in images[:5]]}
+        ).encode(), "application/json")[1]["results"]
+        cls1, score1 = pred.predict(images[:1])
+        cls5, score5 = pred.predict(images[:5])
+        check(one["prediction"] == int(cls1[0]) and
+              one["score"] == float(score1[0]),
+              f"daemon: a single request {one} against predict() "
+              f"{cls1[0]} {score1[0]}")
+        check([r["prediction"] for r in batch] == [int(c) for c in cls5] and
+              [r["score"] for r in batch] == [float(v) for v in score5],
+              "daemon: the JSON batch of 5 differs from predict() at "
+              "bucket 8")
+        code, feats = request("/v1/predict?features=1", images[1].tobytes())
+        check(code == 200 and len(feats["features"]) == N_CLASSES and
+              all(np.isfinite(feats["features"])), "daemon: ?features=1")
+        check(request("/nope")[0] == 404 and
+              request("/nope", b"x")[0] == 404, "daemon: 404")
+        check(request("/v1/predict", b"not raw pixels")[0] == 400,
+              "daemon: 400 on a body of another size")
+        limit = serve.MAX_IMAGES_PER_REQUEST
+        serve.MAX_IMAGES_PER_REQUEST = 4
+        try:
+            code, err = request("/v1/predict", json.dumps({"images": [
+                base64.b64encode(images[0].tobytes()).decode()] * 5}
+            ).encode(), "application/json")
+        finally:
+            serve.MAX_IMAGES_PER_REQUEST = limit
+        check(code == 413 and "limit is 4" in err["error"], "daemon: 413")
+        print("daemon: healthz, a single request and a JSON batch of 5 "
+              "bit-equal to predict() at their buckets, features, 404, 400 "
+              "and 413: ok")
+
+        # Closed-loop load; the answers against predict() at bucket 64.
+        ref_cls, _, _, ref_scores = pred.predict(images, return_arrays=True)
+        for clients in CONCURRENCY:
+            srv.batcher.stats.reset()
+            seconds, lat, answers = serve_load(url, images, clients)
+            stats = request("/stats")[1]
+            idx = [answers[k][0] for k in range(SERVE_IMAGES)]
+            got_cls = [answers[k][1]["prediction"] for k in
+                       range(SERVE_IMAGES)]
+            got = np.array([answers[k][1]["score"] for k in
+                            range(SERVE_IMAGES)])
+            d = bucket_rule(f"{clients} clients", got_cls,
+                            got, ref_cls[idx], ref_scores[idx])
+            p50, p99 = np.percentile(lat, [50, 99])
+            check(stats["errors"] == 0 and stats["images"] == SERVE_IMAGES,
+                  f"{clients} clients: stats {stats}")
+            if clients == 16:
+                check(stats["mean_batch"] > 1, f"16 clients did not "
+                      f"coalesce: mean_batch {stats['mean_batch']}")
+            print(f"daemon, {clients} closed-loop clients, {SERVE_IMAGES} "
+                  f"raw {IMAGE} px images: {SERVE_IMAGES / seconds:.1f} "
+                  f"imgs/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms, mean_batch "
+                  f"{stats['mean_batch']:.2f}, max_batch "
+                  f"{stats['max_batch']}, max |d score| vs bucket 64 "
+                  f"{d:.3g} (host clock; {card})")
+
+        # A dead batcher thread: healthz non-200 within a second, and
+        # requests fail at once.
+        def poisoned(batch):
+            raise RuntimeError("poisoned _gather")
+
+        srv.batcher._gather = poisoned
+        t0 = time.perf_counter()
+        code, err = request("/v1/predict", images[0].tobytes())
+        first_s = time.perf_counter() - t0
+        check(code == 503 and "poisoned" in err["error"] and first_s < 1.0,
+              f"daemon: the request in hand at the death: {code} {err} "
+              f"after {first_s:.3f} s")
+        deadline = time.perf_counter() + 1.0
+        while True:
+            code, info = request("/healthz")
+            if code != 200 or time.perf_counter() > deadline:
+                break
+        probe_s = time.perf_counter() - t0
+        check(code == 503 and info["status"] == "dead",
+              f"daemon: healthz {code} {info} {probe_s:.3f} s after the "
+              "death")
+        t1 = time.perf_counter()
+        code, _ = request("/v1/predict", images[1].tobytes())
+        after_s = time.perf_counter() - t1
+        check(code == 503 and after_s < 1.0,
+              f"daemon: a request after the death: {code} in {after_s} s")
+        print(f"daemon, poisoned _gather: the request in hand failed in "
+              f"{first_s * 1e3:.1f} ms, healthz 503 dead within "
+              f"{probe_s * 1e3:.1f} ms, the next request 503 in "
+              f"{after_s * 1e3:.1f} ms (host clock; {card})")
+    finally:
+        t0 = time.perf_counter()
+        srv.close()
+    print(f"daemon: close() returned in {time.perf_counter() - t0:.3f} s "
+          f"(host clock; {card})")
+    del pred
+
+
+def serve_cli_phase(best, card):
+    """Phase 9, item 4: ``script.serve`` as a process: ready (warm-up
+    included), healthz 200, stats, SIGTERM -> exit 0 within 60 s."""
+    import re
+    import signal
+    import urllib.request
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "openset_imagenet_tpu_torch.script.serve",
+         str(best), "auto", "--port", "0", "--max-batch", str(SERVE_BATCH)],
+        cwd=REPO, stderr=subprocess.PIPE, text=True)
+    lines = []
+    try:
+        url = None
+        for line in proc.stderr:
+            lines.append(line)
+            m = re.search(r"http://([\d.]+):(\d+)", line)
+            if m:
+                url = f"http://{m.group(1)}:{m.group(2)}"
+                break
+        check(url is not None, "serve CLI: no http:// line:\n"
+              + "".join(lines)[-3000:])
+        ready = time.perf_counter() - t0
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            info = json.loads(r.read())
+            check(r.status == 200 and info["status"] == "ok" and
+                  info["n_classes"] == N_CLASSES, f"serve CLI: {info}")
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+            check(r.status == 200 and stats["requests"] == 0,
+                  f"serve CLI stats: {stats}")
+    finally:
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        stop_s = time.perf_counter() - t1
+        proc.stderr.close()
+    check(proc.returncode == 0, f"serve CLI: exit code {proc.returncode}")
+    print(f"serve CLI: ready in {ready:.1f} s (process start, model load, "
+          f"warm-up to {SERVE_BATCH}), SIGTERM -> exit 0 in {stop_s:.2f} s "
+          f"(host clock; {card})")
+
+
+def serving_phase(torch, best, val_arr):
+    """Phase 9: the prediction paths and the daemon on the card."""
+    from openset_imagenet_tpu_torch import inference, serve
+    from openset_imagenet_tpu_torch.ops import oscr
+    from openset_imagenet_tpu_torch.tools import _card
+
+    card = _card.card_line()
+    arr = np.load(val_arr)
+    unk = arr["gt"] < 0
+    for mode in ("softmax", "objectosphere"):
+        measure = arr["scores"].max(-1)
+        if mode == "objectosphere":
+            measure = measure * np.linalg.norm(arr["features"], axis=-1)
+        want = oscr.threshold_at_fpr(measure[unk], 0.1)
+        got = inference.calibrate_threshold(val_arr, 0.1, mode, False)
+        check(got == want, f"calibrate_threshold {mode}: {got} vs {want}")
+        print(f"calibrate_threshold {mode} at FPR 0.1 over {unk.sum()} "
+              f"unknowns: {got:.6g}, equal to threshold_at_fpr")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        predict_cli_phase(inference, best, val_arr, card)
+        daemon_phase(inference, serve, best, card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                          "--cold-buckets", str(best)], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cold buckets: {out.stderr[-3000:]}")
+    cold = json.loads(out.stdout.strip().splitlines()[-1])["cold_buckets_ms"]
+    print("first forward of each cold bucket / warm median, ms, predict() "
+          "of zeros in a fresh process (host clock; " + card + "): "
+          + ", ".join(f"{b}: {v[0]:.1f} / {v[1]:.2f}"
+                      for b, v in cold.items()))
+    serve_cli_phase(best, card)
 
 
 def loss_bound(name, b, c):
@@ -2138,6 +2650,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--cold-buckets"]:
+        return cold_buckets(sys.argv[2])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from openset_imagenet_tpu_torch.experimental import split_site as ss
@@ -2256,9 +2770,20 @@ def main():
 
     # Phase 8 runs no kernel of the port: the forward and the softmax.
     t0 = time.perf_counter()
-    eval_launches = evaluate_phase(torch, fl, fbb, out_dir)
+    eval_launches, best, val_arr = evaluate_phase(torch, fl, fbb, out_dir)
     print(f"launches on the evaluate path: {eval_launches}")
     print(f"phase evaluate: ok ({time.perf_counter() - t0:.1f} s)")
+
+    # Phase 9 runs no kernel of the port either.
+    for counts in (fl.LAUNCHES, fbb.LAUNCHES, ss.LAUNCHES, sp.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    serving_phase(torch, best, val_arr)
+    serve_launches = {**fl.LAUNCHES, **fbb.LAUNCHES, **ss.LAUNCHES,
+                      **sp.LAUNCHES}
+    print(f"launches on the prediction and daemon path: {serve_launches}")
+    print(f"phase predict and serve: ok ({time.perf_counter() - t0:.1f} s)")
 
     # Bounds at the shapes the times were taken at.
     replaces = {"entropic_fwd": (39, 256, 116),

@@ -19,7 +19,9 @@ eval steps and epoch loops, the worker (``worker(cfg)``: label surgery,
 ``_curr`` / ``_best`` checkpoints written atomically and in the
 background, γ selection, resume, preemption, early stopping, the scalar
 record and log file; ``python -m openset_imagenet_tpu_torch.script.train``),
-:class:`OpenSetPredictor`, and the work after training: extraction
+:class:`OpenSetPredictor` (image paths or arrays, ``predict_stream``)
+with the HTTP daemon (``serve``) and the CLIs ``script.predict`` and
+``script.serve``, and the work after training: extraction
 (``get_arrays``), OSCR on the host and on the device
 (``calculate_oscr``, ``calculate_oscr_torch``), and the CLIs
 ``script.evaluate``, ``script.plot_all``, ``script.train_all`` and

@@ -2,24 +2,73 @@
 
 Counterpart of :class:`openset_imagenet_tpu.inference.OpenSetPredictor`
 for checkpoints: load the two-head ResNet once onto an explicit device,
-pad each request to a power-of-two bucket, run the forward step and
-classify with open-set rejection -- by softmax threshold or by the
-objectosphere ``||feature|| * score`` rule (reference
-``metrics.py:45-62``).  Rejected samples are labelled ``-1``.
+decode image paths by the serving policy (or take uint8 arrays), pad each
+request to a power-of-two bucket, run the forward step and classify with
+open-set rejection -- by softmax threshold or by the objectosphere
+``||feature|| * score`` rule (reference ``metrics.py:45-62``).  Rejected
+samples are labelled ``-1``.  :meth:`OpenSetPredictor.predict_stream`
+overlaps the decode of the next chunk, the forward of this one and the
+postprocessing of the last; :func:`calibrate_threshold` sets the
+threshold from evaluation arrays.
 
-Not ported yet (ROADMAP Queue 1 items 4, 6 and 7): image paths and JPEG
-decoding, ``predict_stream``, exported artifacts, ``optimize=`` and
-multi-device serving.  ``predict`` takes uint8 ``[N, H, W, 3]`` arrays.
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
+Queue 1 item: exported ``.stablehlo`` artifacts and SavedModel bundles
+(item 7), ``optimize=``, ``calibration=`` and ``calibration_percentile=``
+(item 6), and ``mesh=`` (item 8).
 """
 
 from __future__ import annotations
+
+import pathlib
+from typing import Iterable
 
 import numpy as np
 import torch
 
 from .checkpoint import infer_n_classes, load_checkpoint, resolve_model_cfg
 from .config import NameSpace
-from .train import build_model, make_forward_step
+from .train import build_model, decode_serving_paths, make_forward_step
+
+
+def calibrate_threshold(arr_path, fpr_target: float, mode: str,
+                        has_background: bool) -> float:
+    """The rejection threshold from evaluation arrays (JAX
+    ``inference.py:22-50``).
+
+    Computes the measure the predictor applies (``_finish``: max softmax
+    over the known-class region, times the feature norm in objectosphere
+    mode) on the rows with ``gt < 0`` and returns the smallest threshold
+    that accepts at most ``fpr_target`` of them
+    (:func:`~.ops.oscr.threshold_at_fpr`).
+    """
+    from .ops.oscr import threshold_at_fpr
+
+    with np.load(arr_path) as arr:
+        gt = arr["gt"]
+        scores = arr["scores"]
+        features = arr["features"] if mode == "objectosphere" else None
+    unk = gt < 0
+    if not unk.any():
+        raise ValueError(f"{arr_path}: no negative/unknown rows (gt < 0) "
+                         "to calibrate on")
+    class_scores = scores[:, :-1] if has_background else scores
+    measure = np.max(class_scores, axis=-1)
+    if mode == "objectosphere":
+        measure = measure * np.linalg.norm(features, axis=-1)
+    return threshold_at_fpr(measure[unk], fpr_target)
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
+                               f"item {item})")
+
+
+def _host_buffer(shape, device: torch.device) -> np.ndarray:
+    """A host array for a batch bound for ``device``: page-locked memory
+    for a CUDA device, so the copy to the card is asynchronous."""
+    if device.type != "cuda":
+        return np.empty(shape, np.uint8)
+    return torch.empty(shape, dtype=torch.uint8, pin_memory=True).numpy()
 
 
 class OpenSetPredictor:
@@ -27,8 +76,11 @@ class OpenSetPredictor:
 
     def __init__(self, checkpoint, n_classes: int | None = None,
                  variant: str | None = None, image_size: int | None = None,
-                 threshold: float = 0.0, mode: str = "softmax",
-                 has_background: bool = False, device="cuda"):
+                 threshold: float | None = None, mode: str | None = None,
+                 has_background: bool | None = None, mesh=None,
+                 optimize: str | None = None, calibration=None,
+                 calibration_percentile: float | None = None,
+                 device="cuda", reader=None):
         """Args:
             checkpoint: reference-layout ``.pth`` from training.
             n_classes: logits width; ``None`` reads it from the logits head.
@@ -42,8 +94,32 @@ class OpenSetPredictor:
                 threshold``).
             has_background: garbage-regime model -- the background column
                 is excluded from the class decision.
+            mesh, optimize, calibration, calibration_percentile: the JAX
+                predictor's multi-device and optimized serving; not ported
+                (``NotImplementedError``).
             device: where the weights live and the forward runs.
+            reader: decodes image paths (a pipeline reader: ``reader(path,
+                None)`` or ``read_batch``); ``None`` takes the serving
+                policy (:func:`~.train.decode_serving_paths`) at first use.
+
+        ``threshold`` / ``mode`` / ``has_background`` left ``None`` resolve
+        to 0.0 / ``'softmax'`` / False (``self.meta`` is ``{}`` for a
+        checkpoint: no serving sidecar).
         """
+        if str(checkpoint).endswith(".stablehlo"):
+            raise _not_ported("serving an exported .stablehlo artifact", 7)
+        if (pathlib.Path(checkpoint) / "saved_model.pb").exists():
+            raise _not_ported("serving a TF SavedModel bundle", 7)
+        if optimize is not None:
+            raise _not_ported(f"optimize={optimize!r}", 6)
+        if calibration is not None:
+            raise _not_ported("calibration=", 6)
+        if calibration_percentile is not None:
+            raise _not_ported("calibration_percentile=", 6)
+        if mesh is not None:
+            raise _not_ported("mesh= (multi-device serving)", 8)
+        self.meta = {}  # a checkpoint has no serving sidecar
+        mode = "softmax" if mode is None else mode
         if mode not in ("softmax", "objectosphere"):
             raise ValueError(f"unknown rejection mode {mode!r}; choose "
                              "'softmax' or 'objectosphere'")
@@ -51,10 +127,11 @@ class OpenSetPredictor:
             n_classes = infer_n_classes(checkpoint)
         self.n_classes = int(n_classes)
         self.image_size = 224 if image_size is None else int(image_size)
-        self.threshold = float(threshold)
+        self.threshold = float(threshold or 0.0)
         self.mode = mode
         self.has_background = bool(has_background)
         self.device = torch.device(device)
+        self._reader = reader
         cfg = NameSpace({"model": resolve_model_cfg(checkpoint, variant)})
         model = build_model(cfg, self.n_classes, device="meta")
         model.to_empty(device=self.device)
@@ -64,11 +141,31 @@ class OpenSetPredictor:
         # Buckets whose forward has completed at least once.
         self._warm_buckets: set = set()
 
+    # -- image loading -------------------------------------------------------
+    def _load_images(self, inputs) -> np.ndarray:
+        """A uint8 ``[N, S, S, 3]`` array as given, or image paths decoded
+        by the reader (kept across calls)."""
+        if isinstance(inputs, np.ndarray):
+            if inputs.dtype != np.uint8 or inputs.ndim != 4 or \
+                    inputs.shape[1:] != (self.image_size, self.image_size, 3):
+                raise ValueError(f"expected uint8 [N, {self.image_size}, "
+                                 f"{self.image_size}, 3], got {inputs.dtype}"
+                                 f" {inputs.shape}")
+            return inputs
+        batch, self._reader = decode_serving_paths(
+            inputs, self.image_size, reader=self._reader)
+        return batch
+
     def _bucket(self, n: int) -> int:
         """Padded batch size for an ``n``-image request: the next power of
         two, so a deployment runs a handful of batch shapes.  BN runs on
         running statistics, so the padded rows do not affect real ones."""
         return 1 << max(0, n - 1).bit_length()
+
+    def bucket_warm(self, n: int) -> bool:
+        """True once the bucket of an ``n``-image batch has completed a
+        forward (its kernel selection and allocation are behind it)."""
+        return self._bucket(n) in self._warm_buckets
 
     def buckets_compiled_up_to(self, max_batch: int) -> bool:
         """True once every bucket of the ladder up to ``max_batch`` has
@@ -95,14 +192,23 @@ class OpenSetPredictor:
                 return self
             b = self._bucket(b + 1)
 
-    def _dispatch(self, images: np.ndarray):
-        """Pad to the bucket and launch the forward (asynchronous on CUDA)."""
+    # -- prediction -----------------------------------------------------------
+    def _stage(self, images: np.ndarray) -> np.ndarray:
+        """The batch padded with zero rows to its bucket, in a host buffer
+        for the predictor's device."""
         n = images.shape[0]
         bucket = self._bucket(n)
-        if bucket != n:
-            pad = np.zeros((bucket - n, *images.shape[1:]), images.dtype)
-            images = np.concatenate([images, pad])
-        return n, self._forward(self.model, images)
+        if self.device.type != "cuda" and bucket == n:
+            return images
+        staged = _host_buffer((bucket, *images.shape[1:]), self.device)
+        staged[:n] = images
+        staged[n:] = 0
+        return staged
+
+    def _dispatch(self, images: np.ndarray):
+        """Pad to the bucket and launch the forward (asynchronous on CUDA).
+        Returns ``(n, device outputs)`` for :meth:`_finish`."""
+        return images.shape[0], self._forward(self.model, self._stage(images))
 
     def _finish(self, n: int, outputs, return_features: bool,
                 return_arrays: bool = False):
@@ -128,22 +234,86 @@ class OpenSetPredictor:
             return pred, measure, features
         return pred, measure
 
-    def predict(self, images: np.ndarray, return_features: bool = False,
+    def predict(self, inputs: Iterable, return_features: bool = False,
                 return_arrays: bool = False):
-        """Classify a uint8 ``[N, H, W, 3]`` array.
+        """Classify images: paths, or a uint8 ``[N, H, W, 3]`` array.
 
         Returns ``(pred_class, pred_score)`` (+ features with
         ``return_features``; + features and the full softmax matrix with
         ``return_arrays``); rejected samples get class ``-1``.
         """
-        if not isinstance(images, np.ndarray):
-            raise TypeError("predict takes a uint8 [N, H, W, 3] numpy array; "
-                            "image paths are not ported yet (ROADMAP Queue 1 "
-                            "item 4)")
-        if images.dtype != np.uint8 or images.ndim != 4 \
-                or images.shape[1:] != (self.image_size, self.image_size, 3):
-            raise ValueError(f"expected uint8 [N, {self.image_size}, "
-                             f"{self.image_size}, 3], got {images.dtype} "
-                             f"{images.shape}")
-        n, outputs = self._dispatch(images)
+        n, outputs = self._dispatch(self._load_images(inputs))
         return self._finish(n, outputs, return_features, return_arrays)
+
+    def predict_stream(self, paths, batch_size: int = 64, prefetch: int = 2,
+                       return_features: bool = False,
+                       return_arrays: bool = False):
+        """Pipelined bulk prediction: yields ``(chunk_paths, *results)``.
+
+        A producer thread decodes and stages chunk k+1 while the device
+        runs the forward of chunk k (dispatched asynchronously) and the
+        caller's thread postprocesses chunk k-1 (JAX ``inference.py:
+        433-512``).  Chunks are ``batch_size`` rows but the last, results
+        come in input order and are bitwise equal to per-chunk
+        :meth:`predict`.  A decode error is raised after the chunk already
+        on the device is yielded; closing the generator stops the producer.
+        """
+        import queue
+        import threading
+
+        paths = list(paths)
+        if not paths:
+            return
+        out_q: "queue.Queue" = queue.Queue(maxsize=max(1, int(prefetch)))
+        stop = threading.Event()
+
+        def produce():
+            try:
+                for i in range(0, len(paths), batch_size):
+                    if stop.is_set():
+                        return
+                    chunk = paths[i:i + batch_size]
+                    images = self._load_images(chunk)
+                    out_q.put((chunk, len(images), self._stage(images)))
+                out_q.put(None)
+            except BaseException as exc:  # surfaced in order, re-raised below
+                out_q.put(exc)
+
+        producer = threading.Thread(target=produce, daemon=True,
+                                    name="osi-predict-decode")
+        producer.start()
+        pending = None  # (chunk_paths, n, device outputs)
+        try:
+            while True:
+                item = out_q.get()
+                if isinstance(item, BaseException):
+                    # The chunk already dispatched is valid work: yield it
+                    # first, so a caller flushing per chunk keeps every row
+                    # before the bad input.
+                    if pending is not None:
+                        pchunk, pn, pout = pending
+                        pending = None
+                        yield (pchunk, *self._finish(
+                            pn, pout, return_features, return_arrays))
+                    raise item
+                if item is None:
+                    break
+                chunk, n, staged = item
+                outputs = self._forward(self.model, staged)
+                if pending is not None:
+                    pchunk, pn, pout = pending
+                    yield (pchunk, *self._finish(pn, pout, return_features,
+                                                 return_arrays))
+                pending = (chunk, n, outputs)
+            if pending is not None:
+                pchunk, pn, pout = pending
+                yield (pchunk, *self._finish(pn, pout, return_features,
+                                             return_arrays))
+        finally:
+            stop.set()
+            # Unblock a producer waiting on a full queue, then let it end.
+            while producer.is_alive():
+                try:
+                    out_q.get_nowait()
+                except queue.Empty:
+                    producer.join(timeout=0.1)

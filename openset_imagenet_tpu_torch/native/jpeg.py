@@ -12,7 +12,8 @@ worker's ``data.reader: auto`` reads with PIL, as the JAX package does.
 
 :class:`NativeReader` takes one image a call; :class:`NativeBatchReader`
 a whole batch in one call on the library's thread pool, which releases
-the GIL.  Both draw their crop offsets and flip from each sample's rng as
+the GIL; :func:`decode_batch_mem` decodes in-memory blobs the same way
+for the serving daemon.  Both readers draw their crop offsets and flip from each sample's rng as
 the JAX readers do, and replay an image the native decoder rejects
 through PIL with the same geometry.  The native decoder stops reading
 once the crop window is filled, so a JPEG damaged only below that window
@@ -81,6 +82,13 @@ def load_library():
             lib.osi_decode_batch.restype = ctypes.c_int
             lib.osi_decode_batch.argtypes = [
                 ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+                ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+                ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            lib.osi_decode_batch_mem.restype = ctypes.c_int
+            lib.osi_decode_batch_mem.argtypes = [
+                ctypes.POINTER(ctypes.c_char_p),
+                ctypes.POINTER(ctypes.c_size_t), ctypes.c_int,
                 ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
                 ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -182,6 +190,34 @@ def decode_batch(paths, utop=None, uleft=None, flips=None, resize=256,
         c_paths, n, ut_p, ul_p,
         fl.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         resize, crop, int(threads),
+        out.ctypes.data_as(ctypes.c_void_p),
+        ok.ctypes.data_as(ctypes.c_void_p))
+    return out, ok.astype(bool)
+
+
+def decode_batch_mem(blobs, resize=256, crop=224,
+                     threads: Optional[int] = None):
+    """Decode in-memory JPEG ``blobs`` into one ``uint8 [N, crop, crop, 3]``
+    center-cropped batch on the library's thread pool, which releases the
+    GIL for the whole batch: the serving daemon's bulk decode.
+
+    Returns ``(images, ok)``, ``ok[i]`` False for a blob the native decoder
+    rejects (the caller replays it through :func:`pil_replay`), or
+    ``(None, None)`` without the library.
+    """
+    lib = load_library()
+    if lib is None:
+        return None, None
+    n = len(blobs)
+    blobs = [bytes(b) for b in blobs]  # kept alive across the C call
+    c_bufs = (ctypes.c_char_p * n)(*blobs)
+    c_lens = (ctypes.c_size_t * n)(*[len(b) for b in blobs])
+    out = np.empty((n, crop, crop, 3), np.uint8)
+    ok = np.zeros(n, np.uint8)
+    if threads is None:
+        threads = min(n, os.cpu_count() or 1)
+    lib.osi_decode_batch_mem(
+        c_bufs, c_lens, n, None, None, None, resize, crop, int(threads),
         out.ctypes.data_as(ctypes.c_void_p),
         ok.ctypes.data_as(ctypes.c_void_p))
     return out, ok.astype(bool)

@@ -1,22 +1,28 @@
 """The port's CLI workflow end to end, on a synthetic ImageNet tree.
 
 The counterpart of the JAX package's ``tools/drive_cli.py`` stages 0, 1,
-2, 5 and 6, each through the port's own entry point in a process of its
-own:
+2, 4, 4b, 5 and 6 and its serve stage, each through the port's own entry
+point in a process of its own:
 
   0. ``script.protocols``  -- synthetic WordNet metadata + JPEG tree ->
                               ``p1_{train,val,test}.csv``
   1. ``script.train``      -- one run on the generated CSVs (64 px)
   2. ``script.evaluate``   -- the val and test archives
+  4. ``script.predict``    -- the raw JPEGs of one known class -> a CSV
+                              with one row an image, one class for all
+  4b. ``script.predict --threshold-at-fpr`` against stage 2's val arrays
+  serve. ``script.serve``  -- the ``.pth`` behind the HTTP daemon; a JSON
+                              batch of the same JPEGs reproduces stage
+                              4's CSV; SIGTERM ends it with exit code 0
   5. ``script.plot_all``   -- the OSCR/confidence PDF + LaTeX table
   6. a learning bar: known-class test accuracy >= ``--min-acc``
 
 Known (dog) leaves are saturated colours, negative and unknown leaves
-grey or dark, so the task is learnable.  The JAX drive's predict, serve
-and multi-process launch stages wait for the port's prediction CLIs and
-daemon (ROADMAP Queue 1 item 4) and multi-GPU runs (item 8).  The drive
-writes JPEGs with PIL and its config is YAML, so it needs PIL and
-PyYAML::
+grey or dark, so the task is learnable.  The JAX drive's int8 and
+exported-artifact stages (4b2, 4c, 4d; its daemon serves the artifact)
+wait for ROADMAP Queue 1 items 6 and 7, and its multi-process launch for
+item 8.  The drive writes JPEGs with PIL and its config is YAML, so it
+needs PIL and PyYAML::
 
     python -m openset_imagenet_tpu_torch.tools.drive_cli \\
         [--loss garbage] [--variant resnet50] [--epochs N] [--device cuda]
@@ -125,6 +131,54 @@ def run(label, args, cwd):
     return p
 
 
+def serve_batch(args, blobs, cwd):
+    """Start ``python -m <args>`` (the serve CLI) in ``cwd``, wait for its
+    ``http://`` line, POST ``blobs`` as one JSON batch, then SIGTERM it;
+    returns the results.  Raises SystemExit if it fails or does not exit
+    with code 0."""
+    import base64
+    import re
+    import signal
+    import urllib.request
+
+    print(f"--- serve: {' '.join(map(str, args))}", flush=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(PACKAGE_ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.Popen([sys.executable, "-m"] + [str(a) for a in args],
+                            cwd=cwd, env=env, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        url, startup = None, []
+        for line in proc.stderr:
+            startup.append(line)
+            m = re.search(r"http://127\.0\.0\.1:(\d+)", line)
+            if m:
+                url = f"http://127.0.0.1:{m.group(1)}"
+                break
+        if url is None:
+            raise SystemExit("serve: no address logged:\n"
+                             + "".join(startup)[-5000:])
+        body = json.dumps({"images": [base64.b64encode(b).decode()
+                                      for b in blobs]}).encode()
+        req = urllib.request.Request(
+            url + "/v1/predict", data=body, method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            results = json.loads(r.read())["results"]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+    if proc.returncode != 0:
+        raise SystemExit(f"serve: exit code {proc.returncode}")
+    return results
+
+
 def get_args(argv=None):
     ap = argparse.ArgumentParser("drive_cli")
     ap.add_argument("--loss", default="garbage",
@@ -217,6 +271,59 @@ output_directory: {out}
             arr = np.load(out / f"{loss}_{split}_arr_curr.npz")
             if not np.allclose(arr["scores"].sum(1), 1.0, rtol=1e-4):
                 raise SystemExit(f"evaluate: {split} scores are no softmax")
+
+        # 4. predict: the raw JPEGs of one known class
+        n_pred = len(KN_COLORS) + (loss == "garbage")
+        dog_dir = root / "val" / leaves[DOG][0]
+        pred_base = ["openset_imagenet_tpu_torch.script.predict",
+                     out / f"{loss}_curr.pth", str(n_pred), dog_dir,
+                     "--image-size", "64", "--batch-size", "8",
+                     "--device", args.device]
+        if loss == "garbage":
+            pred_base.append("--background")
+        pred_csv = root / "predictions.csv"
+        run("predict", pred_base + ["-o", pred_csv], root)
+        lines = pred_csv.read_text().strip().splitlines()
+        n_imgs = len(list(dog_dir.glob("*.JPEG")))
+        if lines[0] != "path,prediction,score" or len(lines) != 1 + n_imgs:
+            raise SystemExit(f"predict: {len(lines)} lines for {n_imgs} "
+                             "images")
+        rows = [line.rsplit(",", 2) for line in lines[1:]]
+        preds = [int(r[1]) for r in rows]
+        if not all(0 <= c < len(KN_COLORS) for c in preds) or \
+                max(map(preds.count, preds)) < len(preds) - 1:
+            raise SystemExit(f"predict: classes {preds}")
+
+        # 4b. the threshold at FPR 0.5 of stage 2's val negatives
+        from openset_imagenet_tpu_torch.inference import calibrate_threshold
+
+        val_arr = out / f"{loss}_val_arr_curr.npz"
+        calib_csv = root / "predictions_calibrated.csv"
+        run("predict(calibrated)", pred_base
+            + ["-o", calib_csv, "--threshold-at-fpr", "0.5",
+               "--calibrate", val_arr], root)
+        threshold = calibrate_threshold(val_arr, 0.5, "softmax",
+                                        loss == "garbage")
+        crows = [line.rsplit(",", 2) for line in
+                 calib_csv.read_text().strip().splitlines()[1:]]
+        if [r[0] for r in crows] != [r[0] for r in rows] or any(
+                (int(c) == -1) != (float(sc) < threshold)
+                for _, c, sc in crows) or all(int(r[1]) == -1
+                                              for r in crows):
+            raise SystemExit(f"predict(calibrated): threshold {threshold}, "
+                             f"rows {crows}")
+
+        # serve: the same JPEGs through the daemon reproduce stage 4
+        served = serve_batch(
+            ["openset_imagenet_tpu_torch.script.serve",
+             out / f"{loss}_curr.pth", str(n_pred), "--port", "0",
+             "--image-size", "64", "--max-batch", "8",
+             "--batch-window-ms", "50", "--device", args.device]
+            + (["--background"] if loss == "garbage" else []),
+            [Path(r[0]).read_bytes() for r in rows], root)
+        if [(str(s["prediction"]), f"{s['score']:.6f}") for s in served] \
+                != [(r[1], r[2]) for r in rows]:
+            raise SystemExit(f"serve: {served} against stage 4's {rows}")
 
         # 5. plot
         run("plot", ["openset_imagenet_tpu_torch.script.plot_all",

@@ -620,6 +620,27 @@ def _make_reader(cfg, crop: int = 224):
     return PILReader(crop=crop, resize=resize)
 
 
+def decode_serving_paths(paths, image_size: int, reader=None):
+    """Image paths -> one ``uint8 [N, image_size, image_size, 3]`` batch
+    by the serving decode policy (JAX ``train.py:740-765``): the ``auto``
+    reader (the native batch reader, else PIL), shorter-side resize, then
+    center crop, the eval transform.
+
+    Returns ``(batch, reader)``, so that callers keep the reader (the
+    native batch reader owns a thread pool) across calls.
+    """
+    if reader is None:
+        from .config import NameSpace
+        reader = _make_reader(NameSpace({"data": {"reader": "auto"},
+                                         "seed": 0}), crop=image_size)
+    paths = list(paths)
+    if not paths:
+        return np.zeros((0, image_size, image_size, 3), np.uint8), reader
+    if hasattr(reader, "read_batch"):
+        return reader.read_batch(paths, [None] * len(paths)), reader
+    return np.stack([reader(p, None) for p in paths]), reader
+
+
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
                                "item 8, multi-GPU)")

@@ -908,3 +908,135 @@ def test_get_arrays_on_the_card_matches_the_cpu(cuda):
         np.testing.assert_allclose(g, w, rtol=0,
                                    atol=2e-2 * np.abs(w).max())
     np.testing.assert_allclose(got[3], want[3], rtol=0, atol=2e-2)
+
+
+# -- prediction paths and the daemon on the card --------------------------------
+
+
+@pytest.fixture
+def tiny_ckpt(tmp_path):
+    """A tiny float32 two-head ResNet with random weights, saved as a
+    reference-layout ``.pth`` (no arch metadata: load with
+    ``variant="tiny"``)."""
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.checkpoint import save_checkpoint
+    from openset_imagenet_tpu_torch.config import NameSpace
+
+    model = engine.build_model(NameSpace({"model": {"variant": "tiny"}}), 5,
+                               dtype=torch.float32, device="cpu",
+                               generator=torch.Generator().manual_seed(4))
+    path = tmp_path / "tiny.pth"
+    save_checkpoint(path, model, epoch=0, best_score=0.0)
+    return path
+
+
+def _f32_predictors(path, monkeypatch, device):
+    from openset_imagenet_tpu_torch import inference
+    from openset_imagenet_tpu_torch import train as engine
+
+    monkeypatch.setattr(inference, "build_model",
+                        lambda cfg, n, **kw: engine.build_model(
+                            cfg, n, dtype=torch.float32, **kw))
+    return (inference.OpenSetPredictor(path, variant="tiny", image_size=32,
+                                       device=device),
+            inference.OpenSetPredictor(path, variant="tiny", image_size=32,
+                                       device="cpu"))
+
+
+def test_predictor_on_the_card_matches_the_cpu(cuda, tiny_ckpt, monkeypatch):
+    """float32 without TF32: the card's scores and features within 1e-4
+    of the CPU predictor's on the same synthetic pixels, the classes equal
+    away from near-ties; both modes, a threshold."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    card, cpu = _f32_predictors(tiny_ckpt, monkeypatch, cuda)
+    images = np.random.default_rng(6).integers(0, 256, (13, 32, 32, 3),
+                                               np.uint8)
+    for mode in ("softmax", "objectosphere"):
+        for p in (card, cpu):
+            p.mode, p.threshold = mode, 0.0
+        got = card.predict(images, return_arrays=True)
+        want = cpu.predict(images, return_arrays=True)
+        np.testing.assert_allclose(got[3], want[3], rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(got[2], want[2], rtol=1e-4,
+                                   atol=1e-4 * np.abs(want[2]).max())
+        top2 = np.sort(want[3], -1)[:, -2:]
+        for i in np.nonzero(got[0] != want[0])[0]:
+            assert top2[i, 1] - top2[i, 0] < 1e-4
+    assert card.bucket_warm(13) and not card.bucket_warm(17)
+
+
+def test_predict_stream_on_the_card_is_bitwise_per_chunk_predict(
+        cuda, tiny_ckpt, tmp_path):
+    """The pipelined stream on the card (pinned staging, asynchronous
+    copies) gives the bits of per-chunk ``predict``, in input order."""
+    from openset_imagenet_tpu_torch.inference import OpenSetPredictor
+    from openset_imagenet_tpu_torch.pipeline import SyntheticReader
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        pred = OpenSetPredictor(tiny_ckpt, variant="tiny", image_size=32,
+                                device=cuda,
+                                reader=SyntheticReader(crop=32, seed=0))
+        paths = [f"img_{i}.jpg" for i in range(21)]
+        got = list(pred.predict_stream(paths, batch_size=8,
+                                       return_arrays=True))
+        assert [g[0] for g in got] == [paths[i:i + 8] for i in (0, 8, 16)]
+        for chunk, *results in got:
+            for g, w in zip(results, pred.predict(chunk,
+                                                  return_arrays=True)):
+                np.testing.assert_array_equal(g, w)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def test_daemon_round_trip_on_the_card(cuda, tiny_ckpt):
+    """``PredictionServer`` around a predictor on the card, with a decode
+    of raw pixel bodies: a single request and a JSON batch equal the
+    predictor's answer for the same pixels at the same bucket."""
+    import base64
+    import json
+    import urllib.request
+
+    from openset_imagenet_tpu_torch.inference import OpenSetPredictor
+    from openset_imagenet_tpu_torch.serve import PredictionServer
+
+    class RawServer(PredictionServer):
+        def decode(self, blobs):
+            return [np.frombuffer(b, np.uint8).reshape(32, 32, 3)
+                    for b in blobs]
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    pred = OpenSetPredictor(tiny_ckpt, variant="tiny", image_size=32,
+                            device=cuda)
+    # The window gathers the JSON batch's five images into one forward.
+    srv = RawServer(("127.0.0.1", 0), pred, max_batch=8,
+                    window_ms=50.0).start()
+    try:
+        host, port = srv.server_address[:2]
+        images = np.random.default_rng(3).integers(0, 256, (5, 32, 32, 3),
+                                                   np.uint8)
+
+        def post(body, ctype):
+            req = urllib.request.Request(
+                f"http://{host}:{port}/v1/predict?features=1", data=body,
+                method="POST", headers={"Content-Type": ctype})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return json.loads(r.read())
+
+        one = post(images[0].tobytes(), "application/octet-stream")
+        cls, score = pred.predict(images[:1])
+        assert one["prediction"] == int(cls[0])
+        assert one["score"] == float(score[0])
+        batch = post(json.dumps({"images": [
+            base64.b64encode(im.tobytes()).decode() for im in images]}
+        ).encode(), "application/json")["results"]
+        cls, score, feats = pred.predict(images, return_features=True)
+        assert [r["prediction"] for r in batch] == [int(c) for c in cls]
+        assert [r["score"] for r in batch] == [float(s) for s in score]
+        assert len(batch[0]["features"]) == 5
+    finally:
+        srv.close()
+        torch.backends.cudnn.deterministic = deterministic

@@ -6,9 +6,10 @@ the ``.tex`` class tables byte for byte as the JAX CLI does, for the
 default seed and another; the hierarchy queries and class sets agree;
 ``util``'s table and archive helpers equal the JAX ones.  The port's CLI
 drive (``openset_imagenet_tpu_torch.tools.drive_cli``: protocols ->
-train -> evaluate -> plot -> learning bar, each in a process of its own)
-runs at the ``tiny`` variant; it is marked ``slow`` because its five
-processes take about a minute on the CPU.
+train -> evaluate -> predict -> calibrated predict -> serve -> plot ->
+learning bar, each in a process of its own) runs at the ``tiny`` variant;
+it is marked ``slow`` because its eight processes take over a minute on
+the CPU.
 """
 
 import filecmp

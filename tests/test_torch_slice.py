@@ -260,3 +260,24 @@ def test_post_training_modules_leave_jax_unloaded():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.split() == ["[]", "[]"], out.stdout
+
+
+def test_prediction_modules_leave_jax_unloaded():
+    """The prediction paths and the daemon import neither jax nor the JAX
+    package, nor PIL or triton (a decode imports PIL when it needs it)."""
+    code = (
+        "import sys\n"
+        "import openset_imagenet_tpu_torch.serve\n"
+        "import openset_imagenet_tpu_torch.inference\n"
+        "import openset_imagenet_tpu_torch.script.predict\n"
+        "import openset_imagenet_tpu_torch.script.serve\n"
+        "from openset_imagenet_tpu_torch.inference import "
+        "calibrate_threshold\n"
+        "from openset_imagenet_tpu_torch.native.jpeg import "
+        "decode_batch_mem\n"
+        "heavy = ('jax', 'flax', 'optax', 'openset_imagenet_tpu', 'yaml',\n"
+        "         'PIL', 'triton')\n"
+        "print([m for m in sys.modules if m.split('.')[0] in heavy])\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
