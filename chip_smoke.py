@@ -166,9 +166,17 @@ atol 1e-2 (bf16) or 1e-5 (f32); against K5 on the same inputs, gp exact
 and the rest within 8e-2 (bf16) or 1e-5 (f32), dx elementwise and the
 others in norm.  Times at the stage-1 and stage-4 tails, K5's beside.
 Phase 2d holds K7, the Triton streaming probes (``ops/stream_probe.py``),
-bit for bit against their plain versions at bf16 [8, 3136, 256] and a
-ragged row count, with their times and ``torch.add``'s, taken over four
-operand pairs in turn so that the 50 MB L2 holds none of them.  Phase 2e
+bit for bit against their plain versions and against the library call
+that computes the same function (``torch.add(x, b)`` for axpy, whose
+bf16 multiply by 1.0009765625 is the identity; ``threshold_backward(g,
+m, 0)`` for relu_mask off the NaNs of a mask strewn with NaN, +-0, +-inf
+and subnormals, the kernel giving 0 on those NaNs as JAX does) at bf16
+[8, 3136, 256], a ragged row count, 4097 elements and a view at storage
+offset 1; it prints each kernel's launch configuration, and times kernel
+and library call in turns in the bench tool's cold harness (an operand
+pair and an output for each call of the graph, the L2 flushed first,
+so that no byte comes from the L2), and in the earlier four-pair harness
+beside it.  Phase 2e
 runs the two ported bench tools as the entry points they are, each in its own
 process with few iterations (``python -m openset_imagenet_tpu_torch.
 tools.bench_split_site --iters 2``, ``...bench_stream --iters 3``), and
@@ -195,13 +203,13 @@ _card.py``) and the time of one PyTorch call computing the same function
 where there is one (``library_ms``: ``F.cross_entropy`` against the
 target matrix for K1 at unk_weight 1 (checked within rtol 1e-5 of K1's
 mean; printed at [256, 116] and [64, 116]), ``F.cross_entropy`` with
-class weights for K3, ``torch.add`` for K7's axpy, and
-``torch.ops.aten.threshold_backward`` for K7's relu-mask (checked bit
-for bit); else null).  The last line is ``{"ok": true,
-"device": {...}}``.  Any failed check raises, so the exit code is non-zero
-and no result line is printed.  Without a CUDA device the script exits
-non-zero at once.  Build outputs (Triton's cache, the K5 and K6
-libraries, the checkpoint) go to ``build/`` in the checkout.
+class weights for K3, ``torch.add(x, b)`` for K7's axpy (checked bit
+for bit), and ``torch.ops.aten.threshold_backward`` for K7's relu-mask
+(checked bit for bit off NaN masks); else null). The last line is
+``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
+code is non-zero and no result line is printed. Without a CUDA device
+the script exits non-zero at once. Build outputs (Triton's cache, the K5
+and K6 libraries, the checkpoint) go to ``build/`` in the checkout.
 """
 
 import json
@@ -227,42 +235,18 @@ def check(ok, message):
 
 def time_ms(fn, reps=30, warmup=5):
     """Median milliseconds of one call, bracketed by CUDA events."""
-    import torch
+    from openset_imagenet_tpu_torch.tools import _card
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return _card.event_ms(fn, reps=reps, warmup=warmup)
 
 
 def graph_ms(fn, calls=20, reps=20):
     """Median device milliseconds of one call, replayed from a CUDA graph
-    of ``calls`` calls (no host launch overhead in the interval)."""
-    import torch
+    of ``calls`` calls (no host launch overhead in the interval), captured
+    on a warmed stream: K1's and K3's ticket counters exist."""
+    from openset_imagenet_tpu_torch.tools import _card
 
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    # Captured on the warmed stream: K1's and K3's ticket counters exist.
-    with torch.cuda.graph(graph, stream=stream):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    return time_ms(graph.replay, reps=reps, warmup=2) / calls
+    return _card.graph_ms(fn, calls=calls, reps=reps)
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -983,48 +967,102 @@ def k6_checks(torch, ss, fbb):
 K7_SHAPES = ((8, 3136, 256), (8, 3001, 256))
 
 
+def _with_specials(torch, t):
+    """``t`` with NaNs of both signs, +-0, +-inf and subnormals of both
+    signs strewn over it (every 7th element, cycling)."""
+    special = torch.tensor([0x7FC0, 0xFFC0, 0x7F81, 0x0000, 0x8000, 0x7F80,
+                            0xFF80, 0x0001, 0x8001, 0x007F, 0x807F],
+                           dtype=torch.int32).to(torch.int16)
+    flat = t.clone().view(torch.int16).view(-1)
+    picks = torch.arange(0, flat.numel(), 7, device=t.device)
+    flat[picks] = special.to(t.device)[torch.arange(
+        picks.numel(), device=t.device) % special.numel()]
+    return flat.view(torch.bfloat16).view(t.shape)
+
+
 def k7_checks(torch, sp):
-    """K7 against its plain versions, bit for bit; returns (max_err,
-    {name: (kernel, plain, library or None) device ms at [8, 3136, 256]})."""
-    import itertools
+    """K7 against its plain versions and the library calls that compute
+    the same function, bit for bit; returns (max_err, {name: (kernel,
+    plain, library) device ms at [8, 3136, 256]})."""
+    from openset_imagenet_tpu_torch.tools import bench_stream as tool
 
     max_err, timing = {}, {}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 200)
     draw = lambda shape: (torch.randn(*shape, generator=gen, device="cuda")
                           .to(torch.bfloat16))
-    runs = {"stream_axpy": (sp.axpy, sp.axpy_plain,
-                            lambda x, b: torch.add(b, x, alpha=sp.AXPY_A)),
+    same_bits = lambda a, b: a.dtype == b.dtype and torch.equal(
+        a.view(torch.int16), b.view(torch.int16))
+    runs = {"stream_axpy": (sp.axpy, sp.axpy_plain, torch.add),
             "stream_relu_mask": (
                 sp.relu_mask, sp.relu_mask_plain,
                 lambda g, m: torch.ops.aten.threshold_backward(g, m, 0))}
-    for shape in K7_SHAPES:
+    for name, key in (("stream_axpy", "axpy"),
+                      ("stream_relu_mask", "relu_mask")):
+        tile, programs, warps = sp._plan(
+            int(np.prod(K7_SHAPES[0])), sp.LAUNCH[key],
+            sp.sm_count(torch.device("cuda")))
+        print(f"K7 {name} launch: {sp.LAUNCH[key]._asdict()} -> tile "
+              f"{tile}, {programs} programs of {warps} warps at "
+              f"{list(K7_SHAPES[0])}")
+    # Both shapes, an odd element count and a view at storage offset 1
+    # (its data pointer 2 bytes past a 16-byte boundary).  relu_mask's
+    # mask carries the special values.
+    cases = []
+    for label, shape in [(f"{list(s)}", s) for s in K7_SHAPES] + [
+            ("n=4097", (4097,)), ("offset 1", ((1 << 16) + 1,))]:
         a, b = draw(shape), draw(shape)
+        m = _with_specials(torch, b)
+        if label == "offset 1":
+            a, b, m = a[1:], b[1:], m[1:]
+            check(a.data_ptr() % 16 == 2 and m.data_ptr() % 16 == 2,
+                  "the offset views are aligned")
+        cases.append((label, {"stream_axpy": (a, b),
+                              "stream_relu_mask": (a, m)}))
+    for label, operands in cases:
         for name, (kernel, plain, library) in runs.items():
+            a, b = operands[name]
             got, again = kernel(a, b), kernel(a, b)
             torch.cuda.synchronize()
             ref = plain(a, b)
-            check(torch.equal(got, again), f"{name} {shape}: two launches "
+            check(same_bits(got, again), f"{name} {label}: two launches "
                   "differ")
-            check(got.dtype == torch.bfloat16 and torch.equal(got, ref),
-                  f"{name} {shape}: not bit-equal to the plain version")
+            check(same_bits(got, ref),
+                  f"{name} {label}: not bit-equal to the plain version")
+            lib = library(a, b)
             if name == "stream_relu_mask":
-                lib = library(a, b)
-                check(lib.dtype == got.dtype and torch.equal(
-                    lib.view(torch.int16), got.view(torch.int16)),
-                    f"{name} {shape}: threshold_backward's bits differ")
+                # threshold_backward passes g through where the mask is
+                # NaN; the kernel, as JAX, gives 0 there.
+                ok = ~torch.isnan(b)
+                check(same_bits(got[ok], lib[ok]), f"{name} {label}: "
+                      "threshold_backward's bits differ off the NaNs")
+                check(bool((got[~ok] == 0).all()), f"{name} {label}: a "
+                      "NaN mask did not give 0")
+            else:
+                check(same_bits(got, lib),
+                      f"{name} {label}: torch.add's bits differ")
             max_err[name] = max(max_err.get(name, 0.0), float(
                 (got.float() - ref.float()).abs().max()))
-    # Timed over four operand pairs in turn (103 MB, twice the L2), so each
-    # call reads its operands from device memory.
-    pairs = [(draw(K7_SHAPES[0]), draw(K7_SHAPES[0])) for _ in range(4)]
-    for name, fns in runs.items():
-        turns = [itertools.cycle(pairs) for _ in fns]
-        timing[name] = tuple(
-            graph_ms(lambda fn=fn, t=t: fn(*next(t))) if fn else None
-            for fn, t in zip(fns, turns))
-    for name, (k, p, lib) in timing.items():
-        print(f"K7 {name} [8,3136,256] bf16: dev_ms {k:.5f} plain {p:.5f} "
-              f"library {'-' if lib is None else f'{lib:.5f}'}")
+    # Timed in the bench tool's cold harness (a pair and an output for each
+    # call of a 20-call graph, 770 MB a replay, the L2 flushed first), so
+    # no byte comes from the L2; kernel and library in turns (kernel,
+    # library, library, kernel), the plain version after.  The warm
+    # harness used before (four rotating pairs, one output buffer) is
+    # printed beside it.
+    cold = tool.operand_pairs(K7_SHAPES[0], cold=True, seed=SEED + 201)
+    warm = tool.operand_pairs(K7_SHAPES[0], cold=False, seed=SEED + 202)
+    for name, (kernel, plain, library) in runs.items():
+        t = tool.in_turns(kernel, library, cold, cold=True)
+        w = tool.in_turns(kernel, library, warm, cold=False)
+        timing[name] = (t["us"] / 1e3,
+                        tool.device_us(plain, cold, cold=True) / 1e3,
+                        t["library_us"] / 1e3)
+        print(f"K7 {name} [8,3136,256] bf16, device us in turns, cold: "
+              f"kernel {t['us_turns'][0]:.3f} {t['us_turns'][1]:.3f}, "
+              f"library {t['library_turns'][0]:.3f} "
+              f"{t['library_turns'][1]:.3f}, plain "
+              f"{timing[name][1] * 1e3:.3f}; warm4: kernel "
+              f"{w['us_turns'][0]:.3f} {w['us_turns'][1]:.3f}, library "
+              f"{w['library_turns'][0]:.3f} {w['library_turns'][1]:.3f}")
     return max_err, timing
 
 

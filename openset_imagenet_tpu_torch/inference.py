@@ -11,10 +11,13 @@ overlaps the decode of the next chunk, the forward of this one and the
 postprocessing of the last; :func:`calibrate_threshold` sets the
 threshold from evaluation arrays.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-Queue 1 item: exported ``.stablehlo`` artifacts and SavedModel bundles
-(item 7), ``optimize=``, ``calibration=`` and ``calibration_percentile=``
-(item 6), and ``mesh=`` (item 8).
+The JAX predictor's refusals are kept with its messages
+(``ValueError``): a TF SavedModel bundle, an unknown ``optimize`` mode,
+``int8`` without ``calibration=``, and ``calibration=`` or
+``calibration_percentile=`` without ``int8``.  Not ported yet, each
+raising ``NotImplementedError`` with its ROADMAP Queue 1 item: exported
+``.stablehlo`` artifacts (item 7), ``optimize="fold_bn"`` and
+``optimize="int8"`` with calibration (item 6), and ``mesh=`` (item 8).
 """
 
 from __future__ import annotations
@@ -28,6 +31,10 @@ import torch
 from .checkpoint import infer_n_classes, load_checkpoint, resolve_model_cfg
 from .config import NameSpace
 from .train import build_model, decode_serving_paths, make_forward_step
+
+# The suffix of the JAX package's exported StableHLO bundles
+# (``export.ARTIFACT_SUFFIX`` there).
+ARTIFACT_SUFFIX = ".stablehlo"
 
 
 def calibrate_threshold(arr_path, fpr_target: float, mode: str,
@@ -95,7 +102,9 @@ class OpenSetPredictor:
             has_background: garbage-regime model -- the background column
                 is excluded from the class decision.
             mesh, optimize, calibration, calibration_percentile: the JAX
-                predictor's multi-device and optimized serving; not ported
+                predictor's multi-device and optimized serving; the
+                combinations the JAX predictor refuses raise its
+                ``ValueError``, the valid ones are not ported
                 (``NotImplementedError``).
             device: where the weights live and the forward runs.
             reader: decodes image paths (a pipeline reader: ``reader(path,
@@ -106,16 +115,38 @@ class OpenSetPredictor:
         to 0.0 / ``'softmax'`` / False (``self.meta`` is ``{}`` for a
         checkpoint: no serving sidecar).
         """
-        if str(checkpoint).endswith(".stablehlo"):
-            raise _not_ported("serving an exported .stablehlo artifact", 7)
+        # The JAX predictor's refusals first, with its messages; then what
+        # is valid there and not ported here.
         if (pathlib.Path(checkpoint) / "saved_model.pb").exists():
-            raise _not_ported("serving a TF SavedModel bundle", 7)
+            raise ValueError(
+                f"{checkpoint} is a TF SavedModel bundle "
+                "(export_imagenet --format savedmodel); it runs on the "
+                "TF runtime (tf_export.load_savedmodel / TF-Serving). "
+                "This predictor serves checkpoints or StableHLO "
+                f"bundles ({ARTIFACT_SUFFIX}).")
+        if optimize not in (None, "fold_bn", "int8"):
+            raise ValueError(f"unknown optimize mode {optimize!r}; choose "
+                             "'fold_bn' or 'int8' (or None for the "
+                             "training graph)")
+        if optimize == "int8" and calibration is None:
+            raise ValueError(
+                "optimize='int8' needs calibration= (a uint8 image array "
+                "or image paths) to set the activation scales")
+        if calibration is not None and optimize != "int8":
+            raise ValueError("calibration= only applies to optimize='int8'")
+        if calibration_percentile is not None and optimize != "int8":
+            raise ValueError("calibration_percentile= only applies to "
+                             "optimize='int8'")
+        if str(checkpoint).endswith(ARTIFACT_SUFFIX):
+            if optimize is not None:
+                raise ValueError(
+                    "optimize= needs a checkpoint, not an exported "
+                    "artifact (the artifact's graph was baked at export "
+                    "time; re-export from the .pth instead)")
+            raise _not_ported(f"serving an exported {ARTIFACT_SUFFIX} "
+                              "artifact", 7)
         if optimize is not None:
             raise _not_ported(f"optimize={optimize!r}", 6)
-        if calibration is not None:
-            raise _not_ported("calibration=", 6)
-        if calibration_percentile is not None:
-            raise _not_ported("calibration_percentile=", 6)
         if mesh is not None:
             raise _not_ported("mesh= (multi-device serving)", 8)
         self.meta = {}  # a checkpoint has no serving sidecar

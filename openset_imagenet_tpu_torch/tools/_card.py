@@ -11,9 +11,10 @@ once.
 
 from __future__ import annotations
 
+import statistics
 import subprocess
 import time
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -66,3 +67,65 @@ def ms_per_run(run: Callable, iters: int, device: torch.device,
     for _ in range(iters):
         out = run()
     return (time.perf_counter() - t0) * 1e3 / iters, out
+
+
+def event_ms(fn: Callable, reps: int = 30, warmup: int = 5,
+             before: Optional[Callable] = None) -> float:
+    """Median milliseconds of one call of ``fn`` on the card, each call
+    bracketed by CUDA events, after ``warmup`` calls (and then
+    ``before()``, if given)."""
+    for _ in range(warmup):
+        fn()
+    if before is not None:
+        before()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn: Callable, calls: int = 20, reps: int = 20,
+             before: Optional[Callable] = None) -> float:
+    """Median device milliseconds of one call of ``fn``, replayed from a
+    CUDA graph of ``calls`` calls (no host launch overhead in the
+    interval).  ``fn`` runs three times on the capture stream first, so a
+    kernel that keeps state made on its first call (the loss kernels'
+    ticket counters) has it before the capture.  ``before()`` runs after
+    the warm-up replays, just before the timed ones."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return event_ms(graph.replay, reps=reps, warmup=2, before=before) / calls
+
+
+_FLUSH: dict = {}
+
+
+def flush_l2(nbytes: int = 256 << 20) -> None:
+    """Rewrite ``nbytes`` (five times the H100's 50 MB L2) of a buffer of
+    its own on the card, so that the lines the L2 holds at normal
+    priority are that buffer's, not a timed kernel's operands: a kernel
+    whose loads are hinted ``evict_first`` never displaces them, and
+    would otherwise keep hitting whatever the call timed before it left
+    there."""
+    buf = _FLUSH.get(nbytes)
+    if buf is None:
+        buf = _FLUSH[nbytes] = torch.zeros(nbytes, dtype=torch.uint8,
+                                           device="cuda")
+    buf.add_(1)

@@ -828,6 +828,88 @@ def test_k7_kernel_matches_plain_bit_for_bit(cuda, probe, shape):
     assert torch.equal(got, getattr(sp, f"{probe}_plain")(a, b))
 
 
+def _every_bf16(device):
+    return torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16).reshape(1, 256, 256).to(device)
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int16),
+                                              b.view(torch.int16))
+
+
+def test_k7_axpy_over_every_bf16_is_torch_add(cuda):
+    """All 65,536 bf16 patterns of x: the kernel has the plain version's
+    and ``torch.add(x, b)``'s bits wherever x is not NaN, NaN where it
+    is."""
+    from openset_imagenet_tpu_torch.ops import stream_probe as sp
+
+    x = _every_bf16(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    b = torch.randn(x.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    got = sp.axpy(x, b)
+    nan = torch.isnan(x)
+    for ref in (sp.axpy_plain(x, b), torch.add(x, b)):
+        assert _same_bits(got[~nan], ref[~nan])
+    assert bool(torch.isnan(got[nan]).all())
+
+
+def test_k7_relu_mask_over_every_bf16_mask(cuda):
+    """All 65,536 bf16 patterns of the mask: the plain version's bits
+    everywhere; ``threshold_backward``'s except on the 254 NaN masks,
+    where the kernel gives 0."""
+    from openset_imagenet_tpu_torch.ops import stream_probe as sp
+
+    m = _every_bf16(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    g = torch.randn(m.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.where(g == 0, torch.ones_like(g), g)
+    got = sp.relu_mask(g, m)
+    assert _same_bits(got, sp.relu_mask_plain(g, m))
+    differs = got.view(torch.int16) != torch.ops.aten.threshold_backward(
+        g, m, 0).view(torch.int16)
+    assert torch.equal(differs, torch.isnan(m))
+    assert bool((got[differs] == 0).all())
+
+
+@pytest.mark.parametrize("probe", ["axpy", "relu_mask"])
+def test_k7_odd_size_and_offset_view(cuda, probe):
+    """4097 elements, and views whose data pointers are 2 bytes past a
+    16-byte boundary (storage offset 1): the plain version's bits."""
+    from openset_imagenet_tpu_torch.ops import stream_probe as sp
+
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    a, b = (torch.randn(3 * 4097 + 1, generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    for x, y in ((a[:4097], b[:4097]), (a[1:], b[1:]),
+                 (a[1:4098], b[1:4098])):
+        assert x.is_contiguous() and (x.numel() == 4097
+                                      or x.data_ptr() % 16 == 2)
+        assert _same_bits(getattr(sp, probe)(x, y),
+                          getattr(sp, f"{probe}_plain")(x, y))
+
+
+@pytest.mark.parametrize("hint", ["none", "evict_first", "stream"])
+@pytest.mark.parametrize("probe", ["axpy", "relu_mask"])
+def test_k7_every_sweep_tile_and_grid_matches_plain(cuda, probe, hint):
+    """Every tile and grid of the launch sweep, at a size where the
+    persistent grids walk several tiles a program and end in a ragged
+    tile: the plain version's bits."""
+    from openset_imagenet_tpu_torch.ops import stream_probe as sp
+    from openset_imagenet_tpu_torch.tools import bench_stream as tool
+
+    n = 3 * 132 * 16384 + 4097
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    a, b = (torch.randn(n, generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    want = getattr(sp, f"{probe}_plain")(a, b)
+    for tile in tool.LAUNCH_SWEEP["tile"]:
+        for waves in tool.LAUNCH_SWEEP["waves"]:
+            launch = sp.Launch(tile, 4, waves, hint)
+            got = getattr(sp, probe)(a, b, launch=launch)
+            assert _same_bits(got, want), launch
+
+
 def test_k7_refuses_what_it_does_not_take(cuda):
     from openset_imagenet_tpu_torch.ops import stream_probe as sp
 

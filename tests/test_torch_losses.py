@@ -324,3 +324,44 @@ def test_no_gradient_to_count_labels_mask_or_weights():
     mean, _ = pfl.entropic_openset_loss_fused(lg, lb, mk.detach(), 1.0)
     mean.backward()
     assert pfl.LAUNCHES == before
+
+
+# -- the reference-API aliases (``openset_imagenet_tpu_torch.losses``) -------
+
+def _public(module):
+    return sorted(n for n in vars(module) if not n.startswith("_")
+                  and n not in ("torch", "annotations"))
+
+
+@pytest.mark.parametrize("unk_weight", [1.0, 0.7])
+def test_entropic_class_alias_matches_functional_and_jax(unk_weight):
+    """As JAX ``tests/test_losses.py:159-175``: the class equals the
+    functional mean and a class-count mismatch raises; on the same numpy
+    inputs the port's class and the JAX class agree within 1e-6."""
+    from openset_imagenet_tpu import losses as jaliases
+    from openset_imagenet_tpu_torch import losses as aliases
+
+    rng = np.random.default_rng(0)
+    logits = rng.normal(size=(16, 5)).astype(np.float32)
+    target = rng.integers(-1, 5, 16).astype(np.int32)
+    loss_obj = aliases.EntropicOpensetLoss(5, unk_weight=unk_weight)
+    got = loss_obj(*_t(logits, target))
+    mean, _ = aliases.entropic_openset_loss(*_t(logits, target),
+                                            unk_weight=unk_weight)
+    assert float(got) == float(mean)
+    assert float(loss_obj(logits, target)) == float(mean)  # array-likes
+    ref = jaliases.EntropicOpensetLoss(5, unk_weight=unk_weight)(logits,
+                                                                 target)
+    np.testing.assert_allclose(float(got), float(ref), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="classes"):
+        aliases.EntropicOpensetLoss(4)(*_t(logits, target))
+
+
+def test_loss_aliases_re_export_the_port_losses():
+    from openset_imagenet_tpu import losses as jaliases
+    from openset_imagenet_tpu_torch import losses as aliases
+
+    assert _public(aliases) == _public(jaliases)
+    for name in _public(aliases):
+        if name != "EntropicOpensetLoss":
+            assert getattr(aliases, name) is getattr(plosses, name)

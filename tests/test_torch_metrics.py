@@ -73,3 +73,17 @@ def test_predict_objectosphere_matches_jax(threshold):
     ref = np.asarray(jm.predict_objectosphere(logits, features, threshold))
     np.testing.assert_array_equal(got[:, 0].numpy(), ref[:, 0])
     np.testing.assert_allclose(got[:, 1].numpy(), ref[:, 1], rtol=1e-6)
+
+
+def test_metric_aliases_re_export_the_port_metrics():
+    """``openset_imagenet_tpu_torch.metrics`` has the six names of JAX's
+    ``openset_imagenet_tpu.metrics``, each the port's ``ops.metrics``
+    function."""
+    from openset_imagenet_tpu import metrics as jaliases
+    from openset_imagenet_tpu_torch import metrics as aliases
+
+    names = sorted(n for n in vars(jaliases) if not n.startswith("_"))
+    assert len(names) == 6
+    assert sorted(n for n in vars(aliases) if not n.startswith("_")) == names
+    for name in names:
+        assert getattr(aliases, name) is getattr(pm, name)

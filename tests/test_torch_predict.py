@@ -19,6 +19,11 @@ image tree with PIL; the JAX package reads the same ``.pth`` through
   rule (scores within 2e-2, a class flipped only at a near-tie: the
   jitted JAX forward rounds fused chains once where the port rounds each
   op); both modes, a threshold, a background column;
+* the predictor's refusals: JAX's ``ValueError``, with JAX's message,
+  for a SavedModel bundle, an unknown ``optimize``, ``int8`` without
+  calibration and calibration without ``int8``; ``NotImplementedError``
+  (its ROADMAP item) for the valid modes that are not ported and for a
+  ``.stablehlo`` bundle;
 * ``predict_stream`` bitwise equal to per-chunk ``predict`` in input
   order (ragged last chunk), a bad file in chunk 3 yielding chunks 1-2
   and then raising, and an early close leaving no producer thread;
@@ -326,23 +331,62 @@ def test_predictor_reader_is_kept_and_arrays_still_work(trained):
         pred.predict(pixels.astype(np.float32))
 
 
+_CALIBRATION = np.zeros((1, SIZE, SIZE, 3), np.uint8)
+
+
+def _same_refusal(port, ref):
+    """Both constructors raise ``ValueError`` with one message."""
+    with pytest.raises(ValueError) as got:
+        port()
+    with pytest.raises(ValueError) as want:
+        ref()
+    assert str(got.value) == str(want.value)
+    return str(got.value)
+
+
+# ``ValueError``: the JAX predictor's argument errors, with its messages
+# (JAX ``inference.py:135-147``); ``item N``: valid there, not ported here.
 @pytest.mark.parametrize("kw,item", [
-    ({"optimize": "fold_bn"}, 6), ({"optimize": "int8"}, 6),
-    ({"calibration": np.zeros((1, SIZE, SIZE, 3), np.uint8)}, 6),
-    ({"calibration_percentile": 99.9}, 6), ({"mesh": object()}, 8)])
+    ({"optimize": "fold"}, None), ({"optimize": "int8"}, None),
+    ({"calibration": _CALIBRATION}, None),
+    ({"calibration_percentile": 99.9}, None),
+    ({"optimize": "fold_bn", "calibration_percentile": 99.9}, None),
+    ({"optimize": "fold_bn"}, 6),
+    ({"optimize": "int8", "calibration": _CALIBRATION}, 6),
+    ({"optimize": "int8", "calibration": _CALIBRATION,
+      "calibration_percentile": 99.9}, 6),
+    ({"mesh": object()}, 8)])
 def test_predictor_unported_arguments(trained, kw, item):
     ckpt, _ = trained
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        pinference.OpenSetPredictor(ckpt, image_size=SIZE, device="cpu",
-                                    **kw)
+    port = lambda: pinference.OpenSetPredictor(ckpt, image_size=SIZE,
+                                               device="cpu", **kw)
+    if item is None:
+        _same_refusal(port, lambda: jinference.OpenSetPredictor(
+            ckpt, variant="tiny", image_size=SIZE, **kw))
+    else:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            port()
 
 
-def test_predictor_unported_artifacts(tmp_path):
+# A SavedModel bundle is refused as the JAX predictor refuses it (JAX
+# ``inference.py:128-134``); a ``.stablehlo`` bundle is not ported yet,
+# and refused with ``optimize=`` as JAX refuses it.
+@pytest.mark.parametrize("path,kw,match", [
+    ("bundle", {}, "TF SavedModel"),
+    ("bundle", {"optimize": "fold"}, "TF SavedModel"),
+    ("m.stablehlo", {}, "item 7"),
+    ("m.stablehlo", {"optimize": "fold_bn"}, "needs a checkpoint")])
+def test_predictor_unported_artifacts(tmp_path, path, kw, match):
     (tmp_path / "bundle").mkdir()
     (tmp_path / "bundle" / "saved_model.pb").write_bytes(b"")
-    for path in (tmp_path / "m.stablehlo", tmp_path / "bundle"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            pinference.OpenSetPredictor(path, device="cpu")
+    port = lambda: pinference.OpenSetPredictor(tmp_path / path,
+                                               device="cpu", **kw)
+    if match.startswith("item"):
+        with pytest.raises(NotImplementedError, match=match):
+            port()
+    else:
+        assert match in _same_refusal(port, lambda: (
+            jinference.OpenSetPredictor(tmp_path / path, **kw)))
 
 
 # -- predict_stream -------------------------------------------------------------

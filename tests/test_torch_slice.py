@@ -227,6 +227,8 @@ def test_import_leaves_jax_unloaded():
         "import openset_imagenet_tpu_torch.logger\n"
         "import openset_imagenet_tpu_torch.native.jpeg\n"
         "import openset_imagenet_tpu_torch.script.train\n"
+        "import openset_imagenet_tpu_torch.losses\n"
+        "import openset_imagenet_tpu_torch.metrics\n"
         "heavy = ('jax', 'flax', 'optax', 'openset_imagenet_tpu', 'yaml',\n"
         "         'msgpack', 'pandas', 'PIL', 'triton')\n"
         "print([m for m in sys.modules if m.split('.')[0] in heavy])\n")

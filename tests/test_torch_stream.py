@@ -5,8 +5,14 @@ versions) against the Pallas kernels of ``tools/bench_pallas_stream.py``
 of the JAX package, which run on the CPU under
 ``force_tpu_interpret_mode()``: bit equality at bf16 ``[2, 16, 256]`` and
 ``[3, 24, 256]`` (both round ``x * 1.0009765625`` to bf16 before adding
-``b``).  Then routing and refusals, and the ported bench tool (its byte
-count equals the JAX tool's; it runs on the host with ``--device cpu``).
+``b``), then over all 65,536 bf16 bit patterns: axpy's ``x`` (equal to
+``torch.add(x, b)`` wherever ``x`` is not NaN, all NaN where it is) and
+relu_mask's mask (equal to a mirror of the kernel's int16 compare
+everywhere; ``threshold_backward`` differs on exactly the 254 NaN
+masks).  Then the launch planner (every element covered exactly once,
+for every configuration the launch sweep can pick), routing and
+refusals, and the ported bench tool (its byte count equals the JAX
+tool's; it runs on the host with ``--device cpu``).
 """
 
 import importlib.util
@@ -81,6 +87,95 @@ def test_relu_mask_keeps_g_where_the_mask_is_positive():
     out = sp.relu_mask(g, m)
     assert torch.equal(out, torch.where(m.float() > 0, g, torch.zeros_like(g)))
     assert bool((out[0, 0, :3] == 0).all()) and out[0, 0, 3] == g[0, 0, 3]
+
+
+def _every_bf16(shape=(1, 256, 256)):
+    """All 65,536 bf16 bit patterns, in order, as a numpy bf16 array and a
+    torch tensor."""
+    bits = np.arange(-(1 << 15), 1 << 15, dtype=np.int16)
+    return (bits.view(jnp.bfloat16).reshape(shape),
+            torch.from_numpy(bits.copy()).view(torch.bfloat16).reshape(shape))
+
+
+def _seeded(shape, seed):
+    """A seeded bf16 operand with no zero (numpy and torch)."""
+    draw = np.random.default_rng(seed).standard_normal(shape) * 3
+    draw = np.where(draw == 0, 1.0, draw)
+    jx = jnp.asarray(draw, jnp.bfloat16)
+    return jx, torch.from_numpy(_bits(jx).copy()).view(torch.bfloat16)
+
+
+def test_axpy_over_every_bf16_is_torch_add():
+    """In bf16 ``x * 1.0009765625`` rounds back to ``x`` for every x, so
+    the Pallas axpy, the plain version and ``torch.add(x, b)`` agree."""
+    jx, x = _every_bf16()
+    jb, b = _seeded(x.shape, seed=12)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = _bits(jax.block_until_ready(
+            _jax_tool().make_pallas_axpy(8)(jx, jb)))
+    plain, add = _bits(sp.axpy_plain(x, b)), _bits(torch.add(x, b))
+    nan = torch.isnan(x).numpy()
+    assert nan.sum() == 2 * 127          # 254 NaN patterns
+    for got in (plain, add):
+        np.testing.assert_array_equal(got[~nan], pallas[~nan])
+    for got in (plain, add, pallas):
+        assert np.isnan(got.view(jnp.bfloat16)[nan].astype(np.float32)).all()
+    # The multiply alone is the identity on every non-NaN value.
+    np.testing.assert_array_equal(_bits(x * sp.AXPY_A)[~nan],
+                                  _bits(x)[~nan])
+
+
+def _relu_mask_bits(g, m):
+    """A plain mirror of the kernel's compare: ``0 < bits <= 0x7F80`` on
+    the mask's 16 bits as int16."""
+    bits = m.view(torch.int16)
+    return torch.where((bits > 0) & (bits <= 0x7F80), g,
+                       torch.zeros_like(g))
+
+
+def test_relu_mask_over_every_bf16_mask():
+    jm, m = _every_bf16()
+    jg, g = _seeded(m.shape, seed=13)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = _bits(jax.block_until_ready(
+            _jax_tool().make_pallas_relu_mask(8)(jg, jm)))
+    plain = _bits(sp.relu_mask_plain(g, m))
+    np.testing.assert_array_equal(_bits(_relu_mask_bits(g, m)), plain)
+    # XLA on the CPU compares with denormals as zero, so JAX's relu-mask
+    # gives 0 on the 127 positive subnormal masks, where the port (IEEE
+    # compare, as torch's and the card's) keeps g; bit-equal elsewhere.
+    bits = _bits(m)
+    subnormal = (bits >= 0x0001) & (bits <= 0x007F)
+    np.testing.assert_array_equal(plain != pallas, subnormal)
+    assert (pallas[subnormal] == 0).all() and subnormal.sum() == 127
+    # threshold_backward (``m <= 0 ? 0 : g``) passes g through on a NaN
+    # mask: it differs on exactly the 254 NaN patterns.
+    library = _bits(torch.ops.aten.threshold_backward(g, m, 0))
+    differs = library != plain
+    assert differs.sum() == 254
+    np.testing.assert_array_equal(differs, torch.isnan(m).numpy())
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 6146048, 6422528])
+def test_plan_covers_every_element_once(n):
+    launches = set(tool.sweep_launches()) | set(sp.LAUNCH.values())
+    assert len(launches) >= 180
+    for launch in launches:
+        tile, programs, warps = sp._plan(n, launch)
+        assert (tile, warps) == (launch.tile, launch.warps)
+        assert programs == (-(-n // tile) if launch.waves == 0 else
+                            min(-(-n // tile), sp.SMS * launch.waves))
+        seen = np.zeros(n, np.int8)
+        for p, start, stop, masked in sp._schedule(n, tile, programs):
+            assert 0 <= p < programs
+            assert masked == (stop - start < tile)
+            seen[start:stop] += 1
+        assert (seen == 1).all(), launch
+
+
+def test_launch_sweep_needs_the_card():
+    with pytest.raises(SystemExit, match="on the card"):
+        tool.main(["--launch-sweep", "--device", "cpu"])
 
 
 def test_probes_route_and_refuse():
