@@ -139,7 +139,24 @@ from a seed), and checks what comes out:
    --max-batch 64`` as a process: its ``http://`` line (time to ready,
    warm-up included), healthz 200, ``/stats``, SIGTERM -> exit 0 within
    60 s.  Launch counts are zeroed and read around the phase: it runs
-   none of the eight kernels.
+   none of the eight kernels;
+10. inference optimization, from the same ``_best`` on the card with
+   cuDNN deterministic: ``OpenSetPredictor`` in four modes -- unoptimized,
+   ``optimize="fold_bn"``, ``"int8"`` self-calibrated (abs-max) on the
+   first 256 of phase 9's synthetic paths and ``"int8"`` at percentile
+   99.9 -- each with its forward ms at batch 64 and 256 (CUDA events, on
+   device-resident uint8), its ``int8_conv`` launches in one forward (52
+   for int8, 0 otherwise), its classes and softmax over phase 9's 600
+   paths against the unoptimized predictor's (``fold_bn`` held to the
+   JAX tests' rule: at most one flip, at a near-tie, scores within rtol
+   0.1, atol 0.05; the int8 modes print their agreement and largest
+   softmax drift) and an empty calibration cache after the pass; then
+   ``script.predict.main`` with ``--optimize fold_bn`` and with
+   ``--optimize int8`` (self-calibrated, ``--reader synthetic``): every
+   row's class that of the same mode's predictor; then the raw-body
+   daemon on the ``fold_bn`` predictor at 16 closed-loop clients within
+   phase 3's bucket rule.  Launch counts are zeroed and read around the
+   phase: ``int8_conv`` and no other kernel.
 
 Phase 2b holds K5 (``ops/fused_block_bwd.py``, CUDA C++ built by ``nvcc``
 at first use) against its plain version at every distinct resnet50 site
@@ -154,6 +171,8 @@ and the plain version's time at the stage-1 tail and head and the
 stage-4 tail.  K5 and K6 are built by two ``nvcc`` processes at once,
 while phase 2 builds the Triton kernels and holds them against their
 plain versions; phase 2's launch counts (profiler) come after the builds.
+``int8_conv`` (``ops/int8_conv.py``, CUDA C++) is built by a third
+``nvcc`` beside them.
 
 Phase 2c holds K6, the split tail site (``experimental/split_site.py``,
 CUDA C++), against its plain version at every resnet50 tail-site shape
@@ -183,19 +202,34 @@ tools.bench_split_site --iters 2``, ``...bench_stream --iters 3``), and
 checks their JSON lines: the cases, finite numbers, the card, K6's four
 kernels in the split case's profile, and that their kernel cases
 launched K5, K6 and K7 (each tool reports the launches of its cases; a
-fresh process starts from zero counts).
+fresh process starts from zero counts).  Phase 2f holds ``int8_conv``
+bit for bit against its plain version (a float64 ``F.conv2d`` of the
+int8 values, then the epilogue as eager ops) at every resnet50 QuantConv
+shape at batch 4, at ragged shapes, at the grouped convs of
+resnext50_32x4d (the SIMT route) and on extreme operands (+-127
+everywhere, zero channels), in bf16 and float32 out; ``torch._int_mm``
+over an explicit im2col gives the plain version's int32 sums at every
+resnet50 shape; it prints what ``F.conv2d`` does with int8 CUDA tensors,
+and at batch 256 each resnet50 shape's device µs (CUDA-graph replays)
+beside its bound, ``torch._int_mm`` alone and with the im2col, and
+cuDNN's bf16 conv at the same shape, and the sums over one forward's 52
+convs.
 
 The launch counts are zeroed just before phase 3 and read after phase 4
 (the serving path), zeroed again before phase 5's epochs and read after
 them (the train path), again around phase 6's epoch and validation
-(the fused train path), and around each of phase 7's worker runs: each
-path must have launched its kernels.  Phase 8's and phase 9's counts
-are zeroed and read too, and printed: their paths run none of them.
+(the fused train path), around each of phase 7's worker runs and
+around phase 10 (the optimized serving path, ``int8_conv``): each path
+must have launched its kernels.  Phase 8's and phase 9's counts are
+zeroed and read too, and printed: their paths run none of them.
 Float32 matmuls and convolutions run without TF32 (both backend flags
 off), so float32 comparisons on the card are exact float32.
 
 The second-to-last line is ``{"kernels": [...]}``: for each of the eight
-ported kernels its launches on its path, max |err| against the plain
+ported kernels and ``int8_conv`` (which replaces no TPU kernel: its
+``replaces`` names the XLA convolution of the JAX ``QuantConv``, and its
+numbers are the stage-1 3x3 conv at batch 256) its launches on its
+path, max |err| against the plain
 version, device ms of the kernel and of the plain version, the least time
 the card could take at the same shape (``bound_ms``, set by ``bytes`` or
 ``operations``: NVIDIA's H100 peaks, ``openset_imagenet_tpu_torch/tools/
@@ -204,12 +238,14 @@ where there is one (``library_ms``: ``F.cross_entropy`` against the
 target matrix for K1 at unk_weight 1 (checked within rtol 1e-5 of K1's
 mean; printed at [256, 116] and [64, 116]), ``F.cross_entropy`` with
 class weights for K3, ``torch.add(x, b)`` for K7's axpy (checked bit
-for bit), and ``torch.ops.aten.threshold_backward`` for K7's relu-mask
-(checked bit for bit off NaN masks); else null). The last line is
+for bit), ``torch.ops.aten.threshold_backward`` for K7's relu-mask
+(checked bit for bit off NaN masks), and for ``int8_conv`` the explicit
+im2col plus ``torch._int_mm`` (checked on the int32 sums); else null). The last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and no result line is printed. Without a CUDA device
-the script exits non-zero at once. Build outputs (Triton's cache, the K5
-and K6 libraries, the checkpoint) go to ``build/`` in the checkout.
+the script exits non-zero at once. Build outputs (Triton's cache, the K5,
+K6 and int8_conv libraries, the checkpoint) go to ``build/`` in the
+checkout.
 """
 
 import json
@@ -365,12 +401,15 @@ def kernels_of(torch, fn, calls):
     """Names of the kernels ``calls`` calls of ``fn`` launch, from
     ``torch.profiler``.  A window can miss its first launch, so each opens
     with a marker kernel (``torch.cuda._sleep``, left out of the names);
-    and a window can come back empty, so the fullest of three counts (a
-    window never holds a kernel that did not run)."""
+    and a window can come back empty, so the fullest of three counts, or
+    of up to six while all are empty (three in a row were, once, on the
+    H100); a window never holds a kernel that did not run."""
     from torch.profiler import ProfilerActivity, profile
 
     names = []
-    for _ in range(3):
+    for window_no in range(6):
+        if window_no >= 3 and names:
+            break
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
@@ -2435,6 +2474,21 @@ def serve_load(server_url, images, clients):
     return seconds, latencies, answers
 
 
+def raw_server(serve):
+    """A ``PredictionServer`` whose bodies are S*S*3 raw bytes -> uint8
+    [S, S, 3] (the card's host has no JPEG decoder)."""
+
+    class RawServer(serve.PredictionServer):
+        def decode(self, blobs):
+            size = self.predictor.image_size
+            if any(len(b) != size * size * 3 for b in blobs):
+                raise ValueError(f"a body is not {size}x{size}x3 raw bytes")
+            return [np.frombuffer(b, np.uint8).reshape(size, size, 3)
+                    for b in blobs]
+
+    return RawServer
+
+
 def daemon_phase(inference, serve, best, card):
     """Phase 9, item 3: ``PredictionServer`` in-process with a decode of
     raw pixel bodies (the host has no JPEG decoder)."""
@@ -2444,16 +2498,7 @@ def daemon_phase(inference, serve, best, card):
 
     from openset_imagenet_tpu_torch.native.jpeg import native_available
 
-    class RawServer(serve.PredictionServer):
-        """Bodies of S*S*3 raw bytes -> uint8 [S, S, 3]."""
-
-        def decode(self, blobs):
-            size = self.predictor.image_size
-            if any(len(b) != size * size * 3 for b in blobs):
-                raise ValueError(f"a body is not {size}x{size}x3 raw bytes")
-            return [np.frombuffer(b, np.uint8).reshape(size, size, 3)
-                    for b in blobs]
-
+    RawServer = raw_server(serve)
     print(f"daemon decode: raw {IMAGE}x{IMAGE}x3 uint8 bodies through "
           f"PredictionServer.decode (the card's host has no JPEG decoder; "
           f"native_available() = {native_available()})")
@@ -2665,6 +2710,320 @@ def serving_phase(torch, best, val_arr):
     serve_cli_phase(best, card)
 
 
+# -- phase 10: inference optimization ----------------------------------------
+
+I8_CHECK_BATCH = 4        # the per-shape checks against the plain version
+I8_TIMED_BATCH = 256      # the per-shape times
+I8_LINE_SHAPE = (56, 64, 64, 3, 1)   # the kernels line: stage-1 3x3 conv
+I8_CONVS = 52             # QuantConvs in one resnet50 forward
+# Shapes beside resnet50's: (batch, H, cin, cout, kernel, stride, groups):
+# ragged M and channel counts, and the grouped convs of resnext50_32x4d's
+# four stages (4, 8, 16 and 32 channels a group: the SIMT route).
+I8_EXTRA = [(3, 13, 64, 64, 3, 1, 1), (5, 9, 64, 256, 3, 2, 1),
+            (1, 7, 128, 72, 1, 1, 1), (2, 11, 96, 40, 1, 1, 1),
+            (2, 56, 128, 128, 3, 1, 32), (2, 56, 256, 256, 3, 2, 32),
+            (2, 28, 256, 256, 3, 1, 32), (2, 28, 512, 512, 3, 2, 32),
+            (2, 14, 512, 512, 3, 1, 32), (2, 14, 1024, 1024, 3, 2, 32),
+            (2, 7, 1024, 1024, 3, 1, 32)]
+# fold_bn's largest |softmax - unoptimized softmax| on phase 9's paths: the
+# H100 readings were 6.2e-6 and 7.8e-6 (PERF.md §6, PR 12); a wrong fold
+# scale or bias moves the scores by far more.
+FOLD_DRIFT = 1e-4
+OPT_MODES = {"none": {}, "fold_bn": {"optimize": "fold_bn"},
+             "int8": {"optimize": "int8"},
+             "int8_p99.9": {"optimize": "int8",
+                            "calibration_percentile": 99.9}}
+
+
+def i8_operands(torch, b, h, cin, cout, k, groups, seed, extreme=False):
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-127, 128, (b, h, h, cin)).astype(np.int8)
+    w = rng.integers(-127, 128, (cout, k, k, cin // groups)).astype(np.int8)
+    if extreme:  # the largest sums, and channels that are all zero
+        q[...] = 127
+        w[...] = -127
+        q[..., ::5] = 0
+        w[::3] = 0
+    scale = (rng.random(cout) * 1e-4 + 1e-6).astype(np.float32)
+    bias = rng.normal(size=cout).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (q, w, scale, bias)]
+
+
+def im2col(torch, q, k, stride, padding):
+    """``[M, k*k*C]`` rows of an NHWC int8 tensor, in the kernel's (tap,
+    channel) order: a view for a 1x1 stride-1 conv, else a copy."""
+    if k == 1 and stride == 1:
+        return q.view(-1, q.shape[-1])
+    qp = torch.nn.functional.pad(q, (0, 0, padding, padding, padding,
+                                     padding))
+    cols = qp.unfold(1, k, stride).unfold(2, k, stride)
+    return cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * q.shape[-1])
+
+
+def int_mm(torch, cols, w):
+    """cuBLASLt's int8 GEMM of the im2col rows and the weight, [M, Cout]
+    int32.  The weight goes in as its transposed view (no copy): the
+    ``[Cout, K]`` rows are the column-major ``[K, Cout]`` operand."""
+    return torch._int_mm(cols, w.view(w.shape[0], -1).t())
+
+
+def int8_checks(torch, ic):
+    """Phase 10, item 1: ``int8_conv`` against its plain version bit for
+    bit, and timed with its yardsticks.  Returns the kernels line's
+    numbers."""
+    from openset_imagenet_tpu_torch.tools import _card
+
+    card = _card.card_line()
+    shapes = ic.resnet50_shapes(IMAGE)
+    check(sum(shapes.values()) == 52, f"resnet50 QuantConvs: {shapes}")
+    cases = [(I8_CHECK_BATCH, *shape, 1) for shape in sorted(shapes)]
+    cases += I8_EXTRA
+    n = 0
+    for i, (b, h, cin, cout, k, s, g) in enumerate(cases):
+        for extreme in (False, True):
+            q, w, scale, bias = i8_operands(torch, b, h, cin, cout, k, g,
+                                            seed=i, extreme=extreme)
+            pad = 1 if k == 3 else 0
+            for dtype in (torch.bfloat16, torch.float32):
+                got = ic.int8_conv(q, w, scale, bias, s, pad, g, dtype)
+                want = ic.int8_conv_plain(q, w, scale, bias, s, pad, g,
+                                          dtype)
+                check(torch.equal(got, want),
+                      f"int8_conv {(b, h, cin, cout, k, s, g)} {dtype} "
+                      f"extreme={extreme}: max |d| "
+                      f"{(got.float() - want.float()).abs().max()}")
+                n += 1
+            if g == 1 and not extreme:
+                acc = ic.int8_conv_acc_plain(q, w, s, pad, g)
+                mm = int_mm(torch, im2col(torch, q, k, s, pad), w)
+                check(torch.equal(mm, acc.view(-1, cout)),
+                      f"torch._int_mm over im2col {(h, cin, cout, k, s)}: "
+                      "int32 sums differ from the plain version's")
+    print(f"int8_conv: {n} cases bit-equal to the plain version (every "
+          f"resnet50 QuantConv shape at batch {I8_CHECK_BATCH}, ragged and "
+          "grouped shapes, extreme operands, bf16 and float32 out); "
+          "torch._int_mm over an im2col gives the plain version's int32 "
+          "sums at every resnet50 shape")
+    q, w, _, _ = i8_operands(torch, 1, 4, 8, 8, 1, 1, seed=0)
+    try:
+        y = torch.nn.functional.conv2d(q.permute(0, 3, 1, 2),
+                                       w.permute(0, 3, 1, 2))
+        print(f"F.conv2d on int8 CUDA tensors returns {y.dtype}")
+    except RuntimeError as err:
+        print(f"F.conv2d on int8 CUDA tensors raises: {str(err)[:160]}")
+
+    print(f"int8_conv per resnet50 QuantConv shape at batch "
+          f"{I8_TIMED_BATCH}, device µs a call from CUDA-graph replays "
+          f"({card}): kernel / bound (by) / torch._int_mm GEMM alone / "
+          "im2col + _int_mm / cuDNN bf16 conv, channels_last")
+    line = {}
+    forward = {"kernel": 0.0, "bound": 0.0, "gemm": 0.0, "im2col_gemm": 0.0,
+               "cudnn": 0.0}
+    for shape in sorted(shapes, key=lambda t: (-t[0], t[1], t[2])):
+        h, cin, cout, k, s = shape
+        pad = 1 if k == 3 else 0
+        q, w, scale, bias = i8_operands(torch, I8_TIMED_BATCH, h, cin, cout,
+                                        k, 1, seed=h + cin)
+        route = ic._plan(cin, cout, 1, True)
+        ms = graph_ms(lambda: ic.int8_conv(q, w, scale, bias, s, pad),
+                      calls=10, reps=10)
+        # The timed operands, held to the plain version bit for bit.
+        got = ic.int8_conv(q, w, scale, bias, s, pad)
+        want = ic.int8_conv_plain(q, w, scale, bias, s, pad)
+        err = (got.float() - want.float()).abs().max().item()
+        check(torch.equal(got, want),
+              f"int8_conv {shape} at batch {I8_TIMED_BATCH}: max |d| {err}")
+        del got, want
+        nbytes, ops = ic.traffic(I8_TIMED_BATCH, h, h, cin, cout, k, s, pad,
+                                 1)
+        bound, bound_by = _card.bound_ms(nbytes, ops, _card.INT8_OP_PER_S)
+        cols = im2col(torch, q, k, s, pad)
+        gemm = graph_ms(lambda: int_mm(torch, cols, w), calls=10, reps=10)
+        both = graph_ms(lambda: int_mm(torch, im2col(torch, q, k, s, pad),
+                                       w), calls=10, reps=10)
+        del cols
+        x = torch.randn(I8_TIMED_BATCH, cin, h, h, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wb = torch.randn(cout, cin, k, k, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        cudnn = graph_ms(lambda: torch.nn.functional.conv2d(
+            x, wb, None, s, pad), calls=10, reps=10)
+        del x, wb
+        count = shapes[shape]
+        for key, v in (("kernel", ms), ("bound", bound), ("gemm", gemm),
+                       ("im2col_gemm", both), ("cudnn", cudnn)):
+            forward[key] += count * v
+        print(f"  H {h} {cin}->{cout} {k}x{k}/{s} ({count} a forward, "
+              f"{route}): {ms * 1e3:.1f} / {bound * 1e3:.1f} ({bound_by}, "
+              f"{ops / ms / 1e9:.0f} TOP/s, {bound / ms:.2f} of bound) / "
+              f"{gemm * 1e3:.1f} / {both * 1e3:.1f} / {cudnn * 1e3:.1f}")
+        if shape == I8_LINE_SHAPE:
+            line = {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
+                    "library_ms": both, "gemm_ms": gemm, "max_abs_err": err}
+            line["plain_ms"] = graph_ms(
+                lambda: ic.int8_conv_plain(q, w, scale, bias, s, pad),
+                calls=2, reps=3)
+            print(f"  plain version (float64 F.conv2d + eager epilogue) at "
+                  f"this shape: {line['plain_ms'] * 1e3:.1f} µs")
+        del q, w
+    print("  the 52 convs of one forward at batch "
+          f"{I8_TIMED_BATCH}, ms: kernel {forward['kernel']:.3f}, bound "
+          f"{forward['bound']:.3f}, _int_mm {forward['gemm']:.3f}, im2col "
+          f"+ _int_mm {forward['im2col_gemm']:.3f}, cuDNN bf16 "
+          f"{forward['cudnn']:.3f}")
+    print(f"  each timed call's output at batch {I8_TIMED_BATCH} is "
+          "bit-equal to the plain version's on the same operands")
+    torch.cuda.empty_cache()
+    return line
+
+
+def agree_with_tie_slack(c0, s0, c1, s1, flips):
+    """The JAX tests' rule (tests/test_optimize.py:134-144): at most
+    ``flips`` class flips, each at a near-tie (its score within 0.05),
+    and the scores within rtol 0.1, atol 0.05."""
+    flipped = np.nonzero(np.asarray(c0) != np.asarray(c1))[0]
+    check(len(flipped) <= flips, f"{len(flipped)} flips, at most {flips}")
+    for i in flipped:
+        check(abs(float(s0[i]) - float(s1[i])) < 0.05,
+              f"row {i} flipped away from a near-tie: {s0[i]} {s1[i]}")
+    check(np.allclose(s1, s0, rtol=0.1, atol=0.05), "scores drifted")
+
+
+def int8_forward_is_plain(torch, ic, pred, images, got, mode):
+    """The int8 predictor's forward on ``images`` gives the bits ``got`` of
+    the same forward with every ``QuantConv`` through the plain version
+    (whose calls launch nothing)."""
+    from openset_imagenet_tpu_torch.models import quant
+
+    quant.int8_conv = ic.int8_conv_plain
+    try:
+        want = pred._forward(pred.model, images)
+    finally:
+        quant.int8_conv = ic.int8_conv
+    for a, b in zip(got, want):
+        check(torch.equal(a, b), f"{mode}: the batch-{images.shape[0]} "
+              "forward differs from its plain-conv twin: max |d| "
+              f"{(a.float() - b.float()).abs().max().item()}")
+    print(f"  {mode}: the batch-{images.shape[0]} forward is bit-equal to "
+          "the same model with every QuantConv through int8_conv_plain")
+
+
+def optimize_phase(torch, inference, serve, ic, best, card):
+    """Phase 10, items 2-4: the full-width resnet50 predictor in four modes
+    on phase 9's 600 paths, the predict CLI with ``--optimize``, and the
+    daemon on a ``fold_bn`` predictor."""
+    from openset_imagenet_tpu_torch.pipeline import SyntheticReader
+    from openset_imagenet_tpu_torch.script import predict
+
+    root = best.parent / "placeholders"
+    paths = [str(root / f"img_{i:05d}.JPEG") for i in range(PREDICT_PATHS)]
+    reader = SyntheticReader(crop=IMAGE, seed=0)
+    timed = {b: torch.from_numpy(np.random.default_rng(b).integers(
+        0, 256, (b, IMAGE, IMAGE, 3), np.uint8)).cuda() for b in (64, 256)}
+    results, preds = {}, {}
+    for mode, kw in OPT_MODES.items():
+        if kw.get("optimize") == "int8":
+            kw = {**kw, "calibration": paths[:256]}  # as the CLI's
+        t0 = time.perf_counter()
+        pred = inference.OpenSetPredictor(best, device="cuda",
+                                          reader=reader, **kw)
+        build_s = time.perf_counter() - t0
+        before = ic.LAUNCHES["int8_conv"]
+        got = pred._forward(pred.model, timed[64])
+        torch.cuda.synchronize()
+        per_forward = ic.LAUNCHES["int8_conv"] - before
+        check(per_forward == (I8_CONVS if mode.startswith("int8") else 0),
+              f"{mode}: {per_forward} int8_conv launches a forward")
+        if per_forward:
+            int8_forward_is_plain(torch, ic, pred, timed[64], got, mode)
+        fwd = {b: time_ms(lambda: pred._forward(pred.model, timed[b]),
+                          reps=20) for b in (64, 256)}
+        cls, scores = [], []
+        for i in range(0, PREDICT_PATHS, PREDICT_BATCH):
+            c, _, _, sc = pred.predict(paths[i:i + PREDICT_BATCH],
+                                       return_arrays=True)
+            cls.append(c)
+            scores.append(sc)
+        check(not pred._decoded_cache, f"{mode}: calibration pixels left "
+              "in the cache after the pass over their paths")
+        results[mode] = (np.concatenate(cls), np.concatenate(scores), fwd,
+                         build_s, per_forward)
+        preds[mode] = pred if mode in ("fold_bn", "int8") else None
+        del pred
+    c0, s0 = results["none"][:2]
+    print(f"optimized serving, resnet50 {IMAGE} px bf16, phase 7 (a)'s "
+          f"_best, {PREDICT_PATHS} synthetic paths ({card}):")
+    for mode, (c1, s1, fwd, build_s, per_forward) in results.items():
+        agree = float(np.mean(c1 == c0))
+        drift = float(np.abs(s1 - s0).max())
+        if mode == "fold_bn":
+            agree_with_tie_slack(c0, s0.max(-1), c1, s1.max(-1), flips=1)
+            # The tie rule's 0.05 passes any fold on a near-uniform model
+            # (top scores ~0.01): hold the softmax to FOLD_DRIFT as well.
+            check(drift <= FOLD_DRIFT, f"fold_bn: softmax drift {drift} "
+                  f"over {FOLD_DRIFT}")
+        check(np.isfinite(s1).all(), f"{mode}: non-finite scores")
+        print(f"  {mode}: forward (device-resident uint8, CUDA events) "
+              f"{fwd[64]:.3f} ms at batch 64 = {64 / fwd[64] * 1e3:.1f} "
+              f"imgs/s, {fwd[256]:.3f} ms at 256 = "
+              f"{256 / fwd[256] * 1e3:.1f} imgs/s; class agreement with "
+              f"the unoptimized predictor {agree:.4f} "
+              f"({int((c1 != c0).sum())} of {PREDICT_PATHS} differ), max "
+              f"softmax drift {drift:.3e}; int8_conv launches a forward "
+              f"{per_forward}; construction {build_s:.2f} s (host clock)")
+
+    # The predict CLI: every row equals the same mode's predictor.
+    listing = best.parent / "listing.txt"
+    for mode in ("fold_bn", "int8"):
+        out = best.parent / f"optimize_{mode}.csv"
+        t0 = time.perf_counter()
+        rc = predict.main(
+            [str(best), "auto", str(listing), "--imagenet-directory",
+             str(root), "--reader", "synthetic", "--device", "cuda",
+             "--image-size", str(IMAGE), "--batch-size", str(PREDICT_BATCH),
+             "-o", str(out), "--optimize", mode])
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"predict --optimize {mode}: exit code {rc}")
+        rows = [r.split(",") for r in out.read_text().splitlines()[1:]]
+        c1 = results[mode][0]
+        check([r[0] for r in rows] == paths and [int(r[1]) for r in rows]
+              == [int(c) for c in c1],
+              f"predict --optimize {mode}: rows differ from the predictor")
+        print(f"predict --optimize {mode}"
+              + (" (self-calibrated on the first 256 inputs)"
+                 if mode == "int8" else "")
+              + f": {PREDICT_PATHS} rows equal to the {mode} predictor's "
+              f"classes, {PREDICT_PATHS / seconds:.1f} imgs/s with the model "
+              f"load{' and calibration' if mode == 'int8' else ''} (host "
+              f"clock; {card})")
+
+    # The daemon on the fold_bn predictor, 16 closed-loop clients.
+    pred = preds["fold_bn"]
+    pred.warmup(SERVE_BATCH)
+    srv = raw_server(serve)(("127.0.0.1", 0), pred, max_batch=SERVE_BATCH,
+                            window_ms=2.0).start()
+    try:
+        host, port = srv.server_address[:2]
+        images = np.random.default_rng(SEED + 10).integers(
+            0, 256, (SERVE_BATCH, IMAGE, IMAGE, 3), np.uint8)
+        ref_cls, _, _, ref_scores = pred.predict(images, return_arrays=True)
+        seconds, lat, answers = serve_load(f"http://{host}:{port}", images,
+                                           16)
+        idx = [answers[k][0] for k in range(SERVE_IMAGES)]
+        d = bucket_rule("fold_bn daemon", [answers[k][1]["prediction"]
+                                           for k in range(SERVE_IMAGES)],
+                        np.array([answers[k][1]["score"]
+                                  for k in range(SERVE_IMAGES)]),
+                        ref_cls[idx], ref_scores[idx])
+        p50, p99 = np.percentile(lat, [50, 99])
+        print(f"daemon on the fold_bn predictor, 16 closed-loop clients, "
+              f"{SERVE_IMAGES} raw images: {SERVE_IMAGES / seconds:.1f} "
+              f"imgs/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms, max |d score| "
+              f"vs bucket 64 {d:.3g} (host clock; {card})")
+    finally:
+        srv.close()
+
+
 def loss_bound(name, b, c):
     """Least device ms of a loss kernel on [b, c] float32 logits: the
     logits, labels and row mask or weights read once, and the scalars
@@ -2696,6 +3055,7 @@ def main():
     from openset_imagenet_tpu_torch.ops import _build
     from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
     from openset_imagenet_tpu_torch.ops import fused_loss as fl
+    from openset_imagenet_tpu_torch.ops import int8_conv as ic
     from openset_imagenet_tpu_torch.ops import stream_probe as sp
     from openset_imagenet_tpu_torch.tools import _card
     from openset_imagenet_tpu_torch.tools.bench_split_site import (
@@ -2708,22 +3068,23 @@ def main():
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
 
-    # nvcc builds K5 and K6 side by side while Triton builds K1-K4 for
-    # their checks against the plain versions.  The checks that count
-    # launches with the profiler come after the builds and the libraries'
-    # loading: run beside them, a profiler window lost an event.
+    # nvcc builds K5, K6 and int8_conv side by side while Triton builds
+    # K1-K4 for their checks against the plain versions.  The checks that
+    # count launches with the profiler come after the builds and the
+    # libraries' loading: run beside them, a profiler window lost an event.
     t_build = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         builds = [pool.submit(_build.build, m.SOURCE, name)
                   for m, name in ((fbb, "fused_block_bwd"),
-                                  (ss, "split_site"))]
+                                  (ss, "split_site"), (ic, "int8_conv"))]
         t0 = time.perf_counter()
         max_err, timing, library = kernel_checks(torch, fl)
         for build in builds:
             build.result()
     fbb._library()
     ss._library()
-    print(f"K5 and K6 built by nvcc, in parallel, within "
+    ic._library()
+    print(f"K5, K6 and int8_conv built by nvcc, in parallel, within "
           f"{time.perf_counter() - t_build:.1f} s")
     one_launch_checks(torch, fl)
     grad_err, grad_timing = grad_kernel_checks(torch, fl)
@@ -2740,6 +3101,9 @@ def main():
     t0 = time.perf_counter()
     k7_err, k7_timing = k7_checks(torch, sp)
     print(f"phase K7: ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    i8_line = int8_checks(torch, ic)
+    print(f"phase int8_conv: ok ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     tool_launches = tool_runs()
     print(f"launches on the tools' path: {tool_launches}")
@@ -2823,6 +3187,30 @@ def main():
     print(f"launches on the prediction and daemon path: {serve_launches}")
     print(f"phase predict and serve: ok ({time.perf_counter() - t0:.1f} s)")
 
+    # Phase 10, the optimized serving path: int8_conv in every int8
+    # forward, no other kernel of the port.
+    from openset_imagenet_tpu_torch import inference, serve as serve_mod
+
+    all_counts = (fl.LAUNCHES, fbb.LAUNCHES, ss.LAUNCHES, sp.LAUNCHES,
+                  ic.LAUNCHES)
+    for counts in all_counts:
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        optimize_phase(torch, inference, serve_mod, ic, best,
+                       _card.card_line())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    opt_launches = {k: v for counts in all_counts for k, v in counts.items()}
+    print(f"launches on the optimized serving path: {opt_launches}")
+    check(opt_launches["int8_conv"] > 0 and not any(
+        v for k, v in opt_launches.items() if k != "int8_conv"),
+        f"the optimized serving path's launches: {opt_launches}")
+    print(f"phase optimize: ok ({time.perf_counter() - t0:.1f} s)")
+
     # Bounds at the shapes the times were taken at.
     replaces = {"entropic_fwd": (39, 256, 116),
                 "entropic_bwd": (69, 256, 116),
@@ -2868,6 +3256,15 @@ def main():
             "ms": k7_timing[name][0], "plain_ms": k7_timing[name][1],
             "bound_ms": stream_bound, "bound_by": stream_by,
             "library_ms": k7_timing[name][2]})
+    kernels.append({
+        "name": "int8_conv", "route": "cuda",
+        "source": "openset_imagenet_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "openset_imagenet_tpu/models/quant.py:86",
+        "launches": opt_launches["int8_conv"],
+        "max_abs_err": i8_line["max_abs_err"], "ms": i8_line["ms"],
+        "plain_ms": i8_line["plain_ms"], "bound_ms": i8_line["bound_ms"],
+        "bound_by": i8_line["bound_by"],
+        "library_ms": i8_line["library_ms"]})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))

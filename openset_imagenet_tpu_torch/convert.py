@@ -13,6 +13,12 @@ Key mapping (flax path -> torch key), as ``convert._torch_key``:
   fc/{kernel,bias}                  resnet_base.fc.*    ([in,out]->[out,in])
   logits/{kernel,bias}              logits.*
 
+The folded graph's conv biases (``conv_init/bias``, ``.../Conv_{k}/bias``)
+map to the conv's ``bias``; the quantized graph's leaves ``scale``,
+``bias`` and ``inv_input_scale`` keep their names on the ``QuantConv``,
+and its int8 ``kernel`` goes HWIO -> ``[Cout, kh, kw, Cin/groups]`` (the
+kernel's layout) as int8.
+
 :func:`load_opt_state` carries an optax optimizer state across with the
 same mapping: Adam's ``ScaleByAdamState(count, mu, nu)`` becomes each
 parameter's ``step`` / ``exp_avg`` / ``exp_avg_sq`` in ``torch.optim.Adam``,
@@ -30,6 +36,10 @@ _BN_STAT = {"scale": "weight", "bias": "bias",
             "mean": "running_mean", "var": "running_var"}
 _BN_LEAF = {v: k for k, v in _BN_STAT.items()}
 _BATCH_STATS = ("mean", "var")
+# A conv's leaves: the kernel, the folded graph's bias and QuantConv's.
+_CONV_LEAF = {"kernel": "weight", "bias": "bias", "scale": "scale",
+              "inv_input_scale": "inv_input_scale"}
+_CONV_PARAM = {v: k for k, v in _CONV_LEAF.items()}
 
 
 def strip_module_prefix(state_dict: Mapping[str, object]) -> dict:
@@ -44,7 +54,7 @@ def torch_key(flax_path: Tuple[str, ...]) -> str:
     parts = list(flax_path)
     leaf = parts[-1]
     if parts[0] == "conv_init":
-        return "resnet_base.conv1.weight"
+        return f"resnet_base.conv1.{_CONV_LEAF[leaf]}"
     if parts[0] == "bn_init":
         return f"resnet_base.bn1.{_BN_STAT[leaf]}"
     if parts[0] in ("fc", "logits"):
@@ -55,9 +65,9 @@ def torch_key(flax_path: Tuple[str, ...]) -> str:
         stage, block = int(m.group(1)), int(m.group(2)) - 1
         mod = parts[1]
         if mod.startswith("Conv_"):
-            sub = f"conv{int(mod[5:]) + 1}.weight"
+            sub = f"conv{int(mod[5:]) + 1}.{_CONV_LEAF[leaf]}"
         elif mod == "downsample_conv":
-            sub = "downsample.0.weight"
+            sub = f"downsample.0.{_CONV_LEAF[leaf]}"
         elif mod == "downsample_bn":
             sub = f"downsample.1.{_BN_STAT[leaf]}"
         elif mod.startswith("bn"):
@@ -70,8 +80,9 @@ def torch_key(flax_path: Tuple[str, ...]) -> str:
 
 def flax_path(key: str) -> Tuple[str, ...]:
     """Inverse of :func:`torch_key`."""
-    if key == "resnet_base.conv1.weight":
-        return ("conv_init", "kernel")
+    m = re.fullmatch(r"resnet_base\.conv1\.(\w+)", key)
+    if m:
+        return ("conv_init", _CONV_PARAM[m.group(1)])
     m = re.fullmatch(r"resnet_base\.bn1\.(\w+)", key)
     if m:
         return ("bn_init", _BN_LEAF[m.group(1)])
@@ -83,11 +94,13 @@ def flax_path(key: str) -> Tuple[str, ...]:
     if m:
         block = f"stage{m.group(1)}_block{int(m.group(2)) + 1}"
         sub = m.group(3)
-        c = re.fullmatch(r"conv(\d+)\.weight", sub)
+        c = re.fullmatch(r"conv(\d+)\.(\w+)", sub)
         if c:
-            return (block, f"Conv_{int(c.group(1)) - 1}", "kernel")
-        if sub == "downsample.0.weight":
-            return (block, "downsample_conv", "kernel")
+            return (block, f"Conv_{int(c.group(1)) - 1}",
+                    _CONV_PARAM[c.group(2)])
+        c = re.fullmatch(r"downsample\.0\.(\w+)", sub)
+        if c:
+            return (block, "downsample_conv", _CONV_PARAM[c.group(1)])
         d = re.fullmatch(r"downsample\.1\.(\w+)", sub)
         if d:
             return (block, "downsample_bn", _BN_LEAF[d.group(1)])
@@ -108,17 +121,25 @@ def _walk(tree, prefix=()):
 def variables_to_state_dict(variables) -> Dict[str, np.ndarray]:
     """flax ``{"params", "batch_stats"}`` (numpy leaves) -> torch keys.
 
-    Kernels are transposed (HWIO -> OIHW, ``[in, out]`` -> ``[out, in]``);
-    values come back as contiguous float32 numpy arrays.
+    Kernels are transposed (HWIO -> OIHW, ``[in, out]`` -> ``[out, in]``;
+    a quantized graph's int8 HWIO kernel -> ``[Cout, kh, kw, Cin/groups]``);
+    values come back as contiguous numpy arrays, int8 kernels as int8 and
+    everything else as float32.
     """
     out: Dict[str, np.ndarray] = {}
     for coll in ("params", "batch_stats"):
         for path, leaf in _walk(variables.get(coll, {})):
-            t = np.asarray(leaf, dtype=np.float32)
+            t = np.asarray(leaf)
+            t = t if t.dtype == np.int8 else t.astype(np.float32,
+                                                       copy=False)
             if path[-1] == "kernel":
-                t = (np.transpose(t, (3, 2, 0, 1)) if t.ndim == 4
-                     else np.transpose(t, (1, 0)))
-            out[torch_key(path)] = np.ascontiguousarray(t)
+                if t.ndim == 4:
+                    order = (3, 0, 1, 2) if t.dtype == np.int8 else \
+                        (3, 2, 0, 1)
+                    t = np.transpose(t, order)
+                else:
+                    t = np.transpose(t, (1, 0))
+            out[torch_key(path)] = np.asarray(t, order="C")
     return out
 
 
@@ -135,20 +156,26 @@ def state_dict_to_variables(state_dict) -> dict:
         t = _to_numpy(value)
         path = flax_path(key)
         if path[-1] == "kernel":
-            t = (np.transpose(t, (2, 3, 1, 0)) if t.ndim == 4
-                 else np.transpose(t, (1, 0)))
+            if t.ndim == 4:
+                order = (1, 2, 3, 0) if t.dtype == np.int8 else (2, 3, 1, 0)
+                t = np.transpose(t, order)
+            else:
+                t = np.transpose(t, (1, 0))
         coll = "batch_stats" if path[-1] in _BATCH_STATS else "params"
         node = variables[coll]
         for name in path[:-1]:
             node = node.setdefault(name, {})
-        node[path[-1]] = np.ascontiguousarray(t)
+        node[path[-1]] = np.asarray(t, order="C")
     return variables
 
 
 def _to_numpy(value) -> np.ndarray:
+    """A float32 numpy array (int8 stays int8: a quantized kernel)."""
     if hasattr(value, "detach"):
         value = value.detach().cpu().numpy()
-    return np.asarray(value, dtype=np.float32)
+    value = np.asarray(value)
+    return value if value.dtype == np.int8 else value.astype(np.float32,
+                                                             copy=False)
 
 
 def load_into(model, state_dict) -> None:
@@ -168,7 +195,7 @@ def load_into(model, state_dict) -> None:
                 raise KeyError(f"checkpoint is missing {key}")
             value = source[key]
             if not isinstance(value, torch.Tensor):
-                value = torch.from_numpy(np.asarray(value, np.float32))
+                value = torch.from_numpy(_to_numpy(value))
             if tuple(value.shape) != tuple(target.shape):
                 raise ValueError(f"{key}: shape {tuple(value.shape)} != "
                                  f"expected {tuple(target.shape)}")

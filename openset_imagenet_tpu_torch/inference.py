@@ -11,13 +11,21 @@ overlaps the decode of the next chunk, the forward of this one and the
 postprocessing of the last; :func:`calibrate_threshold` sets the
 threshold from evaluation arrays.
 
+``optimize="fold_bn"`` serves the folded graph and ``optimize="int8"``
+its int8 form, calibrated on ``calibration=`` (:mod:`.optimize`).  When
+the calibration is image paths, their decoded pixels are kept until the
+prediction pass serves them (self-calibration on the first inputs): a
+chunk that hits every cached path is served from the cache, and a chunk
+that hits some of them decodes as a whole and drops the cached ones too,
+so no decoded pixels outlive the first pass over their paths (the JAX
+predictor keeps them on a partial hit).
+
 The JAX predictor's refusals are kept with its messages
 (``ValueError``): a TF SavedModel bundle, an unknown ``optimize`` mode,
 ``int8`` without ``calibration=``, and ``calibration=`` or
 ``calibration_percentile=`` without ``int8``.  Not ported yet, each
 raising ``NotImplementedError`` with its ROADMAP Queue 1 item: exported
-``.stablehlo`` artifacts (item 7), ``optimize="fold_bn"`` and
-``optimize="int8"`` with calibration (item 6), and ``mesh=`` (item 8).
+``.stablehlo`` artifacts (item 7) and ``mesh=`` (item 8).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 
 from .checkpoint import infer_n_classes, load_checkpoint, resolve_model_cfg
 from .config import NameSpace
+from .optimize import optimized_inference
 from .train import build_model, decode_serving_paths, make_forward_step
 
 # The suffix of the JAX package's exported StableHLO bundles
@@ -101,11 +110,17 @@ class OpenSetPredictor:
                 threshold``).
             has_background: garbage-regime model -- the background column
                 is excluded from the class decision.
-            mesh, optimize, calibration, calibration_percentile: the JAX
-                predictor's multi-device and optimized serving; the
-                combinations the JAX predictor refuses raise its
-                ``ValueError``, the valid ones are not ported
-                (``NotImplementedError``).
+            optimize: ``"fold_bn"`` (batch-norm folded into the convs),
+                ``"int8"`` (also the block convs in int8; needs
+                ``calibration``) or None (the training graph).
+            calibration: for ``"int8"``: a uint8 ``[N, H, W, 3]`` array
+                or image paths (decoded like ``predict`` inputs) that set
+                the activation scales.
+            calibration_percentile: clip each activation scale to this
+                percentile of |activation| instead of the abs-max.
+            mesh: multi-device serving, not ported (``NotImplementedError``);
+                the argument combinations the JAX predictor refuses raise
+                its ``ValueError``.
             device: where the weights live and the forward runs.
             reader: decodes image paths (a pipeline reader: ``reader(path,
                 None)`` or ``read_batch``); ``None`` takes the serving
@@ -145,8 +160,6 @@ class OpenSetPredictor:
                     "time; re-export from the .pth instead)")
             raise _not_ported(f"serving an exported {ARTIFACT_SUFFIX} "
                               "artifact", 7)
-        if optimize is not None:
-            raise _not_ported(f"optimize={optimize!r}", 6)
         if mesh is not None:
             raise _not_ported("mesh= (multi-device serving)", 8)
         self.meta = {}  # a checkpoint has no serving sidecar
@@ -163,19 +176,37 @@ class OpenSetPredictor:
         self.has_background = bool(has_background)
         self.device = torch.device(device)
         self._reader = reader
+        # Decoded calibration pixels by path, until predicted (int8 on paths).
+        self._decoded_cache: dict = {}
         cfg = NameSpace({"model": resolve_model_cfg(checkpoint, variant)})
         model = build_model(cfg, self.n_classes, device="meta")
         model.to_empty(device=self.device)
         load_checkpoint(checkpoint, model)
+        if optimize is not None:
+            model = optimized_inference(
+                model.eval(), optimize, calibration=calibration,
+                image_size=self.image_size,
+                load_images=self._calibration_loader,
+                percentile=calibration_percentile)
         self.model = model.eval().to(memory_format=torch.channels_last)
         self._forward = make_forward_step()
         # Buckets whose forward has completed at least once.
         self._warm_buckets: set = set()
 
     # -- image loading -------------------------------------------------------
+    def _calibration_loader(self, paths) -> np.ndarray:
+        """Decode int8 calibration paths and keep their pixels, so that
+        predicting the same files (self-calibration) decodes them once."""
+        paths = list(paths)
+        batch = self._load_images(paths)
+        self._decoded_cache = dict(zip(paths, batch))
+        return batch
+
     def _load_images(self, inputs) -> np.ndarray:
         """A uint8 ``[N, S, S, 3]`` array as given, or image paths decoded
-        by the reader (kept across calls)."""
+        by the reader (kept across calls).  Paths cached by the int8
+        calibration are served from the cache when the whole chunk hits
+        it; either way a hit path leaves the cache."""
         if isinstance(inputs, np.ndarray):
             if inputs.dtype != np.uint8 or inputs.ndim != 4 or \
                     inputs.shape[1:] != (self.image_size, self.image_size, 3):
@@ -183,8 +214,15 @@ class OpenSetPredictor:
                                  f"{self.image_size}, 3], got {inputs.dtype}"
                                  f" {inputs.shape}")
             return inputs
+        paths = list(inputs)
+        if paths and self._decoded_cache:
+            hits = [self._decoded_cache.get(p) for p in paths]
+            for p in paths:
+                self._decoded_cache.pop(p, None)
+            if all(h is not None for h in hits):
+                return np.stack(hits)
         batch, self._reader = decode_serving_paths(
-            inputs, self.image_size, reader=self._reader)
+            paths, self.image_size, reader=self._reader)
         return batch
 
     def _bucket(self, n: int) -> int:

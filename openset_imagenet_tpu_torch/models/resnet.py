@@ -24,6 +24,12 @@ differ:
   ``bn_stats_rows`` (see :mod:`.norm`): running statistics in eval mode,
   batch (or ghost) statistics in training mode, so ``model.train()`` is
   the JAX ``train=True``.
+* ``folded`` is the inference graph of :mod:`..optimize`: every conv has
+  a bias (the absorbed batch-norm), added in the compute dtype after the
+  conv has been rounded, as flax adds it, and the norm slots are the
+  identity.  ``quantized`` also makes the block convs (``conv1`` ...
+  ``conv3``, ``downsample.0``) :class:`.quant.QuantConv`; the stem and
+  both dense heads stay in the compute dtype.
 
 ``state_dict`` keys are the reference torch layout (``resnet_base.conv1
 .weight`` ... ``resnet_base.fc.*``, ``logits.*``), so reference checkpoints
@@ -46,18 +52,34 @@ from .norm import BatchNorm
 
 
 class Conv(nn.Module):
-    """Bias-free conv; OIHW float32 kernel, computed in the input's dtype."""
+    """OIHW float32 kernel, computed in the input's dtype; with ``bias``
+    (the folded graph) a float32 bias added after the conv's rounding, in
+    the input's dtype (flax's ``conv -> round -> + bias``; a bias given to
+    ``F.conv2d`` would be added before the rounding)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: int = 0, groups: int = 1, device=None):
+                 padding: int = 0, groups: int = 1, bias: bool = False,
+                 device=None):
         super().__init__()
         self.stride, self.padding, self.groups = stride, padding, groups
         self.weight = nn.Parameter(torch.empty(
             cout, cin // groups, kernel, kernel, device=device))
+        self.bias = (nn.Parameter(torch.zeros(cout, device=device))
+                     if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(x.dtype), None, self.stride,
-                        self.padding, 1, self.groups)
+        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride,
+                     self.padding, 1, self.groups)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype).view(1, -1, 1, 1)
+        return y
+
+
+def _identity_norm(features: int, device=None) -> nn.Module:
+    """Norm slot of the folded graph (JAX ``_identity_norm``): the
+    batch-norm lives in the preceding conv's kernel and bias."""
+    del features, device
+    return nn.Identity()
 
 
 class Dense(nn.Module):
@@ -94,20 +116,20 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, filters: int, stride: int, norm,
                  groups: int = 1, base_width: int = 64,
-                 boundary_mask: bool = False, device=None):
+                 boundary_mask: bool = False, conv=Conv, device=None):
         super().__init__()
         if groups != 1 or base_width != 64:
             raise ValueError("groups/base_width require Bottleneck variants "
                              "(resnext*/wide_resnet*)")
         self.boundary_mask = boundary_mask
-        self.conv1 = Conv(cin, filters, 3, stride, 1, device=device)
+        self.conv1 = conv(cin, filters, 3, stride, 1, device=device)
         self.bn1 = norm(filters, device=device)
-        self.conv2 = Conv(filters, filters, 3, 1, 1, device=device)
+        self.conv2 = conv(filters, filters, 3, 1, 1, device=device)
         self.bn2 = norm(filters, device=device)
         self.downsample = None
         if stride != 1 or cin != filters:
             self.downsample = nn.Sequential(
-                Conv(cin, filters, 1, stride, device=device),
+                conv(cin, filters, 1, stride, device=device),
                 norm(filters, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -131,7 +153,8 @@ class Bottleneck(nn.Module):
     gradients reach them) and :meth:`..norm.BatchNorm.fold` turns them into
     ``(mul, add)``; in eval the running statistics are folded.
     ``use_kernel`` is the fused backward's K5 route (None: by device;
-    False: the plain site).
+    False: the plain site).  ``conv`` builds the four convs (the folded
+    graph's biased :class:`Conv`, the quantized graph's ``QuantConv``).
     """
 
     expansion = 4
@@ -139,7 +162,7 @@ class Bottleneck(nn.Module):
     def __init__(self, cin: int, filters: int, stride: int, norm,
                  groups: int = 1, base_width: int = 64,
                  boundary_mask: bool = False, fused: bool = False,
-                 device=None):
+                 conv=Conv, device=None):
         super().__init__()
         if fused and (groups != 1 or base_width != 64):
             raise ValueError("fused_blocks supports only the standard "
@@ -150,16 +173,16 @@ class Bottleneck(nn.Module):
         self.use_kernel = None
         width = int(filters * (base_width / 64.0)) * groups
         out = filters * 4
-        self.conv1 = Conv(cin, width, 1, device=device)
+        self.conv1 = conv(cin, width, 1, device=device)
         self.bn1 = norm(width, device=device)
-        self.conv2 = Conv(width, width, 3, stride, 1, groups, device=device)
+        self.conv2 = conv(width, width, 3, stride, 1, groups, device=device)
         self.bn2 = norm(width, device=device)
-        self.conv3 = Conv(width, out, 1, device=device)
+        self.conv3 = conv(width, out, 1, device=device)
         self.bn3 = norm(out, device=device)
         self.downsample = None
         if stride != 1 or cin != out:
             self.downsample = nn.Sequential(
-                Conv(cin, out, 1, stride, device=device),
+                conv(cin, out, 1, stride, device=device),
                 norm(out, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -218,9 +241,9 @@ class ResNetBase(nn.Module):
 
     def __init__(self, block, stage_sizes: Sequence[int], width: int,
                  groups: int, base_width: int, fc_layer_dim: int, norm,
-                 device=None, **block_kw):
+                 stem_bias: bool = False, device=None, **block_kw):
         super().__init__()
-        self.conv1 = Conv(3, width, 7, 2, 3, device=device)
+        self.conv1 = Conv(3, width, 7, 2, 3, bias=stem_bias, device=device)
         self.bn1 = norm(width, device=device)
         cin = width
         for i, count in enumerate(stage_sizes):
@@ -246,8 +269,6 @@ class ResNetBase(nn.Module):
 # ROADMAP Queue 1 items that bring each deferred JAX model option.
 _DEFERRED = {
     "remat": "item 9 (experimental knobs)",
-    "folded": "item 6 (inference optimization)",
-    "quantized": "item 6 (inference optimization)",
 }
 
 
@@ -268,8 +289,14 @@ class ResNet50(nn.Module):
     every block boundary's ReLU gate as int8; ``fused_blocks`` runs each
     Bottleneck as the fused-backward block (training needs
     ``bn_stats_rows > 0``; Bottleneck variants with ``groups == 1`` and
-    ``base_width == 64`` only).  ``remat``, ``folded`` and ``quantized``
-    are not ported yet and raise ``NotImplementedError``.
+    ``base_width == 64`` only).  ``folded`` is the inference graph with
+    every batch-norm absorbed into a biased conv (weights from
+    :func:`..optimize.fold_inference`; eval only), ``quantized`` (needs
+    ``folded``) its int8 form (weights from :func:`..optimize.
+    quantize_inference`); both raise the JAX model's ``ValueError`` where
+    it refuses them.  ``remat`` is not ported yet and raises
+    ``NotImplementedError``.  ``config`` keeps the constructor's
+    arguments, for :func:`..optimize.fold_model`.
     """
 
     def __init__(self, fc_layer_dim: int = 1000, out_features: int = 1000,
@@ -282,14 +309,30 @@ class ResNet50(nn.Module):
                  folded: bool = False, quantized: bool = False,
                  device=None):
         super().__init__()
-        requested = dict(remat=remat, folded=folded, quantized=quantized)
-        for name, value in requested.items():
-            if value not in (False, None, "none"):
-                raise NotImplementedError(
-                    f"model option {name}={value!r} is not ported yet "
-                    f"(ROADMAP Queue 1 {_DEFERRED[name]})")
-        del space_to_depth, dot_1x1  # same arithmetic as the plain convs
+        if remat not in (False, None, "none"):
+            raise NotImplementedError(
+                f"model option remat={remat!r} is not ported yet "
+                f"(ROADMAP Queue 1 {_DEFERRED['remat']})")
         block = block or Bottleneck
+        self.config = dict(
+            fc_layer_dim=fc_layer_dim, out_features=out_features,
+            logit_bias=logit_bias, dtype=dtype, stage_sizes=stage_sizes,
+            block=block, width=width, groups=groups, base_width=base_width,
+            bn_stats_rows=bn_stats_rows, space_to_depth=space_to_depth,
+            dot_1x1=dot_1x1, remat=remat, fused_blocks=fused_blocks,
+            boundary_mask=boundary_mask, folded=folded, quantized=quantized)
+        # The JAX model's refusals, with its messages (JAX models/
+        # resnet.py:449-460 and, for dot_1x1, the Bottleneck's :323-325).
+        if quantized and not folded:
+            raise ValueError("quantized inference requires the folded "
+                             "graph (optimize.quantize_model sets both)")
+        if folded and (fused_blocks or boundary_mask):
+            raise ValueError("folded inference is not supported with "
+                             "fused_blocks/boundary_mask (training "
+                             "experiments)")
+        if folded and dot_1x1 and block is Bottleneck:
+            raise ValueError("folded inference is not supported with "
+                             "dot_1x1 (Conv1x1 carries no bias slot)")
         block_kw = {"boundary_mask": bool(boundary_mask)}
         if fused_blocks:
             if block is not Bottleneck:
@@ -299,15 +342,28 @@ class ResNet50(nn.Module):
         self.dtype = dtype
         self.bn_stats_rows = int(bn_stats_rows)
         self.fused_blocks = bool(fused_blocks)
-        norm = functools.partial(BatchNorm, stats_rows=self.bn_stats_rows)
+        self.folded = bool(folded)
+        self.quantized = bool(quantized)
+        if quantized:
+            from .quant import QuantConv
+
+            block_kw["conv"] = functools.partial(QuantConv, dtype=dtype)
+        elif folded:
+            block_kw["conv"] = functools.partial(Conv, bias=True)
+        norm = (_identity_norm if folded else
+                functools.partial(BatchNorm, stats_rows=self.bn_stats_rows))
         self.resnet_base = ResNetBase(
             block, stage_sizes, width, groups, base_width, fc_layer_dim,
-            norm, device=device, **block_kw)
+            norm, stem_bias=self.folded, device=device, **block_kw)
         self.logits = Dense(fc_layer_dim, out_features, bias=logit_bias,
                             device=device)
 
     def forward(self, images: torch.Tensor):
         """``images``: float ``[B, H, W, 3]`` -> float32 (logits, features)."""
+        if self.folded and self.training:
+            raise ValueError("a folded model is inference-only "
+                             "(batch-norm was absorbed into the convs; "
+                             "there are no statistics to train)")
         x = images.permute(0, 3, 1, 2).to(self.dtype)
         features = self.resnet_base(x)
         logits = self.logits(features)
@@ -369,8 +425,10 @@ def init_weights(model: ResNet50, generator: torch.Generator) -> ResNet50:
     Conv kernels: variance-scaling 2.0, fan-out, truncated normal.  Dense
     kernels: U(+-sqrt(1/fan_in)); biases zero.  Batch-norm scale one (zero
     for the last norm of every block), bias zero, running mean zero,
-    running variance one.  The draws differ from ``jax.random``'s; tests
-    that compare the two packages share weights through :mod:`..convert`.
+    running variance one; a folded conv's bias zero, a ``QuantConv``'s
+    placeholders left as they are.  The draws differ from
+    ``jax.random``'s; tests that compare the two packages share weights
+    through :mod:`..convert`.
     """
     for module in model.modules():
         if isinstance(module, Conv):
@@ -378,6 +436,8 @@ def init_weights(model: ResNet50, generator: torch.Generator) -> ResNet50:
             fan_out = w.shape[0] * w.shape[2] * w.shape[3]
             std = math.sqrt(2.0 / fan_out) / 0.87962566103423978
             w.copy_(_trunc_normal(w.shape, std, generator))
+            if module.bias is not None:
+                module.bias.zero_()
         elif isinstance(module, Dense):
             limit = math.sqrt(1.0 / module.weight.shape[1])
             u = torch.rand(module.weight.shape, generator=generator)
@@ -390,9 +450,11 @@ def init_weights(model: ResNet50, generator: torch.Generator) -> ResNet50:
             module.running_mean.zero_()
             module.running_var.fill_(1.0)
     for module in model.modules():
-        if isinstance(module, Bottleneck):
+        if isinstance(module, Bottleneck) and isinstance(module.bn3,
+                                                         BatchNorm):
             module.bn3.weight.zero_()
-        elif isinstance(module, BasicBlock):
+        elif isinstance(module, BasicBlock) and isinstance(module.bn2,
+                                                           BatchNorm):
             module.bn2.weight.zero_()
     return model
 
@@ -402,7 +464,8 @@ def build_resnet(variant: str = "resnet50", *, fc_layer_dim: int,
                  dtype: torch.dtype = torch.bfloat16, bn_stats_rows: int = 0,
                  space_to_depth: bool = False, remat=False,
                  dot_1x1: bool = False, fused_blocks: bool = False,
-                 boundary_mask: bool = False, device=None,
+                 boundary_mask: bool = False, folded: bool = False,
+                 quantized: bool = False, device=None,
                  generator: Optional[torch.Generator] = None) -> ResNet50:
     """Construct a two-head ResNet by variant name, in eval mode.
 
@@ -417,7 +480,8 @@ def build_resnet(variant: str = "resnet50", *, fc_layer_dim: int,
                      bn_stats_rows=bn_stats_rows,
                      space_to_depth=space_to_depth, remat=remat,
                      dot_1x1=dot_1x1, fused_blocks=fused_blocks,
-                     boundary_mask=boundary_mask, device=device,
+                     boundary_mask=boundary_mask, folded=folded,
+                     quantized=quantized, device=device,
                      **_VARIANTS[variant])
     if torch.device(device or "cpu").type != "meta":
         if generator is None:

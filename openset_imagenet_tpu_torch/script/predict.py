@@ -10,11 +10,13 @@ of ``path,prediction,score`` rows, rejected samples as class ``-1``.  The
 JAX flags and rules, plus ``--device {cuda,cpu}`` (default the card;
 ``-g N`` runs on ``cuda:N``) and ``--reader`` (not a JAX flag: the decode
 of the images, ``auto`` being the JAX policy; ``synthetic`` needs no
-libjpeg, PIL or image files).  ``--optimize``, ``--calibration-images``
-and ``--calibration-percentile`` (ROADMAP Queue 1 item 6) and
-``--devices`` (item 8) raise ``NotImplementedError``;
-``--compile-cache`` / ``--no-compile-cache`` are accepted and have no
-effect (there is no XLA cache; Queue 1 item 5).
+libjpeg, PIL or image files).  ``--optimize fold_bn`` serves the folded
+graph, ``--optimize int8`` the int8 graph, calibrated on
+``--calibration-images`` or, without them, on the first 256 inputs
+(self-calibration, decoded once for both passes).  ``--devices`` (ROADMAP
+Queue 1 item 8) raises ``NotImplementedError``; ``--compile-cache`` /
+``--no-compile-cache`` are accepted and have no effect (there is no XLA
+cache; Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -109,16 +111,23 @@ def get_args(argv=None):
                         help="Predict on the card (default) or on the host")
     parser.add_argument("--optimize", choices=("fold_bn", "int8"),
                         default=None,
-                        help="Inference-graph optimization: not ported yet "
-                             "(ROADMAP Queue 1 item 6)")
+                        help="Inference-graph optimization: fold_bn folds "
+                             "every batch-norm into the preceding "
+                             "convolution; int8 also quantizes the block "
+                             "convs to symmetric int8 (small quantization "
+                             "noise on the scores)")
     parser.add_argument("--calibration-images", nargs="+", metavar="SPEC",
                         default=None,
-                        help="int8 calibration inputs: not ported yet "
-                             "(ROADMAP Queue 1 item 6)")
+                        help="Activation-range calibration inputs for "
+                             "--optimize int8 (files/directories/listings "
+                             "like the positional images). Default: "
+                             "self-calibrate on the first 256 prediction "
+                             "inputs")
     parser.add_argument("--calibration-percentile", type=float,
                         default=None, metavar="PCT",
-                        help="int8 calibration clip: not ported yet "
-                             "(ROADMAP Queue 1 item 6)")
+                        help="Clip each int8 activation scale to this "
+                             "percentile of |activation| (e.g. 99.9) "
+                             "instead of the abs-max")
     parser.add_argument("--gpu", "-g", type=int, nargs="?", default=None,
                         const=0, help="Run on this CUDA device index")
     parser.add_argument("--devices", "-d", type=int, default=None,
@@ -158,11 +167,6 @@ def check_ported(args, log) -> None:
     if args.devices is not None:
         raise NotImplementedError("--devices (data-parallel serving) is not "
                                   "ported yet (ROADMAP Queue 1 item 8)")
-    for flag in ("optimize", "calibration_images", "calibration_percentile"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
-                "Queue 1 item 6)")
     if args.compile_cache is not None or args.no_compile_cache:
         log.info("--compile-cache / --no-compile-cache name an XLA compile "
                  "cache: they have no effect in the PyTorch port")
@@ -248,6 +252,19 @@ def main(argv=None):
     paths = collect_paths(args.images, pathlib.Path(args.imagenet_directory))
     if not paths:
         log.warning("no images found")
+    calibration = None
+    if paths and args.optimize == "int8":
+        if args.calibration_images is not None:
+            calibration = collect_paths(
+                args.calibration_images,
+                pathlib.Path(args.imagenet_directory))
+            if not calibration:
+                log.error("--calibration-images matched no images")
+                return 1
+        else:
+            # Self-calibration on the data being served.
+            calibration = paths[:256]
+        log.info(f"int8 calibration on {len(calibration)} images")
     predictor = None
     if paths:
         image_size = 224 if args.image_size is None else args.image_size
@@ -255,8 +272,10 @@ def main(argv=None):
             args.checkpoint, n_classes=args.n_classes,
             variant=args.model_variant, image_size=image_size,
             threshold=args.threshold, mode=args.mode,
-            has_background=args.background, device=device_of(args),
-            reader=reader_of(args, image_size))
+            has_background=args.background, optimize=args.optimize,
+            calibration=calibration,
+            calibration_percentile=args.calibration_percentile,
+            device=device_of(args), reader=reader_of(args, image_size))
         if args.threshold_at_fpr is not None:
             # After construction: the measure of the resolved mode.
             predictor.threshold = calibrate_threshold(

@@ -9,19 +9,23 @@ checkpoint once, run every batch bucket up to ``--max-batch`` once
 (:mod:`openset_imagenet_tpu_torch.serve`) until SIGINT or SIGTERM, which
 shut down cleanly with exit code 0.  The model and operating-point flags
 are ``predict``'s, with ``--device {cuda,cpu}`` (default the card) and
-``-g N``; ``--optimize``, ``--calibration-images``,
-``--calibration-percentile`` (ROADMAP Queue 1 item 6) and ``--devices``
-(item 8) raise ``NotImplementedError``; ``--compile-cache`` has no effect.
+``-g N``; ``--optimize fold_bn`` serves the folded graph, ``--optimize
+int8`` the int8 graph calibrated on ``--calibration-images`` (required:
+no inputs exist at start-up to calibrate on).  ``--devices`` (ROADMAP
+Queue 1 item 8) raises ``NotImplementedError``; ``--compile-cache`` has no
+effect.
 """
 
 from __future__ import annotations
 
 import argparse
+import pathlib
 import signal
 import sys
 import threading
 
-from .predict import _n_classes, calibrate_threshold, check_ported, device_of
+from .predict import (_n_classes, calibrate_threshold, check_ported,
+                      collect_paths, device_of)
 
 
 def get_args(argv=None):
@@ -83,16 +87,21 @@ def get_args(argv=None):
                         help="Serve from the card (default) or the host")
     parser.add_argument("--optimize", choices=("fold_bn", "int8"),
                         default=None,
-                        help="Inference-graph optimization: not ported yet "
-                             "(ROADMAP Queue 1 item 6)")
+                        help="Inference-graph optimization: fold_bn folds "
+                             "batch-norms into the convs; int8 also "
+                             "quantizes the block convs (needs "
+                             "--calibration-images)")
     parser.add_argument("--calibration-images", nargs="+", metavar="SPEC",
                         default=None,
-                        help="int8 calibration inputs: not ported yet "
-                             "(ROADMAP Queue 1 item 6)")
+                        help="Activation-range calibration inputs for "
+                             "--optimize int8: image files, directories, "
+                             "or listings, drawn from the serving "
+                             "distribution")
     parser.add_argument("--calibration-percentile", type=float,
                         default=None, metavar="PCT",
-                        help="int8 calibration clip: not ported yet "
-                             "(ROADMAP Queue 1 item 6)")
+                        help="Clip each int8 activation scale to this "
+                             "percentile of |activation| (e.g. 99.9) "
+                             "instead of the abs-max")
     parser.add_argument("--gpu", "-g", type=int, nargs="?", default=None,
                         const=0, help="Serve from this CUDA device index")
     parser.add_argument("--devices", "-d", type=int, default=None,
@@ -138,11 +147,22 @@ def main(argv=None):
 
     log = configure_logger()
     check_ported(args, log)
+    calibration = None
+    if args.optimize == "int8":
+        calibration = collect_paths(args.calibration_images,
+                                    pathlib.Path("."))
+        if not calibration:
+            log.error("--calibration-images matched no images")
+            return 1
+        log.info(f"int8 calibration on {len(calibration)} images")
     predictor = OpenSetPredictor(
         args.checkpoint, n_classes=args.n_classes,
         variant=args.model_variant, image_size=args.image_size,
         threshold=args.threshold, mode=args.mode,
-        has_background=args.background, device=device_of(args))
+        has_background=args.background, optimize=args.optimize,
+        calibration=calibration,
+        calibration_percentile=args.calibration_percentile,
+        device=device_of(args))
     if args.threshold_at_fpr is not None:
         predictor.threshold = calibrate_threshold(
             args.calibrate, args.threshold_at_fpr, predictor.mode,

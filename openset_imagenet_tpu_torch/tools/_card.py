@@ -2,11 +2,11 @@
 least time its work could take.
 
 Peaks of one NVIDIA H100 SXM from NVIDIA's data sheet (dense, at the full
-700 W power limit): 3.35 TB/s of device memory, 989 TFLOP/s bf16 on the
-tensor cores, 67 TFLOP/s float32 outside them.  A bound is the larger of
-the bytes over the memory rate and the operations over the peak of their
-type; the caller counts each input read once and each output written
-once.
+700 W power limit): 3.35 TB/s of device memory, 989 TFLOP/s bf16 and
+1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s float32 outside them.  A
+bound is the larger of the bytes over the memory rate and the operations
+over the peak of their type; the caller counts each input read once and
+each output written once.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch
 
 BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 F32_FLOP_PER_S = 67e12
 
 

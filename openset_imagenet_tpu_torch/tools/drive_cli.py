@@ -1,8 +1,8 @@
 """The port's CLI workflow end to end, on a synthetic ImageNet tree.
 
 The counterpart of the JAX package's ``tools/drive_cli.py`` stages 0, 1,
-2, 4, 4b, 5 and 6 and its serve stage, each through the port's own entry
-point in a process of its own:
+2, 4, 4b, 4b2, 5 and 6 and its serve stage, each through the port's own
+entry point in a process of its own:
 
   0. ``script.protocols``  -- synthetic WordNet metadata + JPEG tree ->
                               ``p1_{train,val,test}.csv``
@@ -11,6 +11,8 @@ point in a process of its own:
   4. ``script.predict``    -- the raw JPEGs of one known class -> a CSV
                               with one row an image, one class for all
   4b. ``script.predict --threshold-at-fpr`` against stage 2's val arrays
+  4b2. ``script.predict --optimize int8``, self-calibrated on the same
+                              JPEGs: at most one class apart from stage 4
   serve. ``script.serve``  -- the ``.pth`` behind the HTTP daemon; a JSON
                               batch of the same JPEGs reproduces stage
                               4's CSV; SIGTERM ends it with exit code 0
@@ -18,10 +20,9 @@ point in a process of its own:
   6. a learning bar: known-class test accuracy >= ``--min-acc``
 
 Known (dog) leaves are saturated colours, negative and unknown leaves
-grey or dark, so the task is learnable.  The JAX drive's int8 and
-exported-artifact stages (4b2, 4c, 4d; its daemon serves the artifact)
-wait for ROADMAP Queue 1 items 6 and 7, and its multi-process launch for
-item 8.  The drive writes JPEGs with PIL and its config is YAML, so it
+grey or dark, so the task is learnable.  The JAX drive's
+exported-artifact stages (4c, 4d; its daemon serves the artifact) wait
+for ROADMAP Queue 1 item 7, and its multi-process launch for item 8.  The drive writes JPEGs with PIL and its config is YAML, so it
 needs PIL and PyYAML::
 
     python -m openset_imagenet_tpu_torch.tools.drive_cli \\
@@ -312,6 +313,18 @@ output_directory: {out}
                                               for r in crows):
             raise SystemExit(f"predict(calibrated): threshold {threshold}, "
                              f"rows {crows}")
+
+        # 4b2. int8 serving, self-calibrated on the inputs: quantization
+        # noise may move one borderline image (the JAX drive's slack)
+        int8_csv = root / "predictions_int8.csv"
+        run("predict(int8)", pred_base
+            + ["-o", int8_csv, "--optimize", "int8"], root)
+        qpreds = [int(line.rsplit(",", 2)[1]) for line in
+                  int8_csv.read_text().strip().splitlines()[1:]]
+        if len(qpreds) != len(preds) or sum(
+                a != b for a, b in zip(qpreds, preds)) > 1:
+            raise SystemExit(f"predict(int8): {qpreds} against stage 4's "
+                             f"{preds}")
 
         # serve: the same JPEGs through the daemon reproduce stage 4
         served = serve_batch(

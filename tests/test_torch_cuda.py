@@ -1,8 +1,12 @@
 """The port's kernels against their plain versions, on the GPU.
 
 The Triton loss kernels (K1-K4), the CUDA C++ fused-bottleneck site (K5)
-and split tail site (K6), both built with ``nvcc`` at first use, and the
-Triton streaming probes (K7).  Marked ``cuda``: skipped where there is no
+and split tail site (K6), both built with ``nvcc`` at first use, the
+Triton streaming probes (K7), and the CUDA C++ int8 convolution of the
+quantized serving graph (``int8_conv``, bit-equal to its plain version at
+every resnet50 shape, ragged and grouped shapes and extreme operands; 52
+launches a resnet50 int8 forward, whose output equals the same forward
+through the plain version).  Marked ``cuda``: skipped where there is no
 CUDA device (or, for the Triton kernels, no Triton).  On a
 GPU host run ``python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py`` (``--noconftest``: the suite's conftest imports
@@ -1121,4 +1125,124 @@ def test_daemon_round_trip_on_the_card(cuda, tiny_ckpt):
         assert len(batch[0]["features"]) == 5
     finally:
         srv.close()
+        torch.backends.cudnn.deterministic = deterministic
+
+
+# -- int8_conv: the quantized serving graph's convolution ----------------------
+
+def _i8_operands(device, b, h, cin, cout, k, groups, seed=0, extreme=False):
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-127, 128, (b, h, h, cin)).astype(np.int8)
+    w = rng.integers(-127, 128, (cout, k, k, cin // groups)).astype(np.int8)
+    if extreme:  # the largest sums, and channels that are all zero
+        q[...] = 127
+        w[...] = -127
+        q[..., ::5] = 0
+        w[::3] = 0
+    scale = (rng.random(cout) * 1e-4 + 1e-6).astype(np.float32)
+    bias = rng.normal(size=cout).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)
+    return t(q), t(w), t(scale), t(bias)
+
+
+def _i8_same(device, b, h, cin, cout, k, stride, groups=1, seed=0,
+             dtype=torch.bfloat16, extreme=False):
+    from openset_imagenet_tpu_torch.ops import int8_conv as ic
+
+    q, w, scale, bias = _i8_operands(device, b, h, cin, cout, k, groups,
+                                     seed, extreme)
+    pad = 1 if k == 3 else 0
+    before = ic.LAUNCHES["int8_conv"]
+    got = ic.int8_conv(q, w, scale, bias, stride, pad, groups, dtype)
+    torch.cuda.synchronize()
+    assert ic.LAUNCHES["int8_conv"] == before + 1
+    want = ic.int8_conv_plain(q, w, scale, bias, stride, pad, groups, dtype)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.fixture
+def cuda_i8():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda")
+
+
+def _resnet50_shapes():
+    from openset_imagenet_tpu_torch.ops.int8_conv import resnet50_shapes
+
+    return sorted(resnet50_shapes(224))
+
+
+@pytest.mark.parametrize("shape", _resnet50_shapes())
+def test_int8_conv_at_every_resnet50_shape(cuda_i8, shape):
+    h, cin, cout, k, stride = shape
+    _i8_same(cuda_i8, 2, h, cin, cout, k, stride, seed=h + cin + cout)
+
+
+@pytest.mark.parametrize("b,h,cin,cout,k,stride,groups", [
+    (3, 13, 64, 64, 3, 1, 1), (1, 7, 128, 72, 1, 1, 1),
+    (5, 9, 64, 256, 3, 2, 1),
+    (2, 56, 128, 128, 3, 1, 32), (2, 56, 256, 256, 3, 2, 32),
+    (2, 14, 1024, 1024, 3, 2, 32), (2, 8, 16, 16, 3, 1, 4),
+    (2, 9, 6, 10, 3, 2, 2), (2, 11, 96, 40, 1, 1, 1)])
+def test_int8_conv_ragged_and_grouped(cuda_i8, b, h, cin, cout, k, stride,
+                                      groups):
+    _i8_same(cuda_i8, b, h, cin, cout, k, stride, groups, seed=b * h)
+
+
+@pytest.mark.parametrize("shape", [(56, 64, 64, 3, 1), (7, 2048, 512, 1, 1),
+                                   (14, 1024, 2048, 1, 2)])
+def test_int8_conv_extreme_operands_and_float32(cuda_i8, shape):
+    h, cin, cout, k, stride = shape
+    _i8_same(cuda_i8, 2, h, cin, cout, k, stride, extreme=True)
+    _i8_same(cuda_i8, 2, h, cin, cout, k, stride, dtype=torch.float32)
+
+
+def test_int8_conv_refuses_what_it_does_not_take(cuda_i8):
+    from openset_imagenet_tpu_torch.ops import int8_conv as ic
+
+    q, w, scale, bias = _i8_operands(cuda_i8, 2, 8, 64, 64, 3, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ic.int8_conv(q.permute(0, 2, 1, 3), w, scale, bias, 1, 1)
+    with pytest.raises(TypeError, match="int8"):
+        ic.int8_conv(q.float(), w, scale, bias, 1, 1)
+    with pytest.raises(ValueError, match="does not fit"):
+        ic.int8_conv(q, w, scale, bias, 1, 1, groups=2)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        ic.int8_conv(q, w, scale, bias, 1, 1, dtype=torch.float16)
+
+
+def test_int8_resnet50_forward_goes_through_the_kernel(cuda_i8,
+                                                       monkeypatch):
+    """A resnet50 at 224 px, folded and quantized on the card: one int8
+    forward launches int8_conv 52 times, and gives the bits of the same
+    forward with every conv through the plain version."""
+    from openset_imagenet_tpu_torch import optimize
+    from openset_imagenet_tpu_torch.models import quant
+    from openset_imagenet_tpu_torch.models.resnet import build_resnet
+    from openset_imagenet_tpu_torch.ops import int8_conv as ic
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = build_resnet("resnet50", fc_layer_dim=16, out_features=16,
+                             device=cuda_i8)
+        images = np.random.default_rng(5).integers(0, 256,
+                                                   (4, 224, 224, 3),
+                                                   np.uint8)
+        qmodel = optimize.quantize_inference(model, [images])
+        qmodel = qmodel.to(memory_format=torch.channels_last)
+        x = torch.from_numpy(images[:2]).to(cuda_i8).float() / 255
+        ic.LAUNCHES["int8_conv"] = 0
+        with torch.inference_mode():
+            logits, feats = qmodel(x)
+            torch.cuda.synchronize()
+            assert ic.LAUNCHES["int8_conv"] == 52
+            monkeypatch.setattr(quant, "int8_conv", ic.int8_conv_plain)
+            plain_logits, plain_feats = qmodel(x)
+        assert torch.isfinite(logits).all()
+        assert torch.equal(logits, plain_logits)
+        assert torch.equal(feats, plain_feats)
+    finally:
         torch.backends.cudnn.deterministic = deterministic

@@ -171,8 +171,26 @@ def test_bfloat16_forward_matches_jax(variant, bn_rows):
 @pytest.mark.parametrize("option,value", [
     ("remat", "elementwise"), ("folded", True), ("quantized", True)])
 def test_deferred_options_raise(option, value):
+    """``remat`` is still deferred (its ROADMAP item); ``folded`` and
+    ``quantized`` are ported: they build (quantized on the folded graph)
+    with identity norm slots, and ``quantized`` alone raises the JAX
+    model's ``ValueError``."""
+    from openset_imagenet_tpu_torch.models.quant import QuantConv
     from openset_imagenet_tpu_torch.models.resnet import ResNet50
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResNet50(fc_layer_dim=3, out_features=3, device="meta",
-                 **{option: value})
+    if option == "remat":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ResNet50(fc_layer_dim=3, out_features=3, device="meta",
+                     remat=value)
+        return
+    model = ResNet50(fc_layer_dim=3, out_features=3, device="meta",
+                     **{"folded": True, option: value})
+    assert model.folded and model.quantized == (option == "quantized")
+    assert not any(k.endswith("running_var") for k in model.state_dict())
+    block = model.resnet_base.layer1[0]
+    assert isinstance(block.conv2, QuantConv) == (option == "quantized")
+    assert model.resnet_base.conv1.bias is not None
+    if option == "quantized":
+        with pytest.raises(ValueError, match="requires the folded"):
+            ResNet50(fc_layer_dim=3, out_features=3, device="meta",
+                     quantized=True)

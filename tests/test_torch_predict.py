@@ -22,15 +22,15 @@ image tree with PIL; the JAX package reads the same ``.pth`` through
 * the predictor's refusals: JAX's ``ValueError``, with JAX's message,
   for a SavedModel bundle, an unknown ``optimize``, ``int8`` without
   calibration and calibration without ``int8``; ``NotImplementedError``
-  (its ROADMAP item) for the valid modes that are not ported and for a
-  ``.stablehlo`` bundle;
+  (its ROADMAP item) for ``mesh=`` and a ``.stablehlo`` bundle; the
+  ``fold_bn`` and ``int8`` modes build and predict;
 * ``predict_stream`` bitwise equal to per-chunk ``predict`` in input
   order (ragged last chunk), a bad file in chunk 3 yielding chunks 1-2
   and then raising, and an early close leaving no producer thread;
 * the predict CLIs of both packages on one directory in float32 (paths,
   classes, scores within 1e-4, ``--features-output``,
-  ``--threshold-at-fpr``), the header-only CSV, the argument errors and
-  the flags that are not ported.
+  ``--threshold-at-fpr``), the header-only CSV, the argument errors, the
+  ``--optimize`` flags and the flag that is not ported.
 """
 
 import csv
@@ -345,16 +345,18 @@ def _same_refusal(port, ref):
 
 
 # ``ValueError``: the JAX predictor's argument errors, with its messages
-# (JAX ``inference.py:135-147``); ``item N``: valid there, not ported here.
+# (JAX ``inference.py:135-147``); ``item N``: valid there, not ported
+# here; ``"ported"``: the optimized serving modes, which build and predict
+# (held against the JAX predictor in tests/test_torch_optimize.py).
 @pytest.mark.parametrize("kw,item", [
     ({"optimize": "fold"}, None), ({"optimize": "int8"}, None),
     ({"calibration": _CALIBRATION}, None),
     ({"calibration_percentile": 99.9}, None),
     ({"optimize": "fold_bn", "calibration_percentile": 99.9}, None),
-    ({"optimize": "fold_bn"}, 6),
-    ({"optimize": "int8", "calibration": _CALIBRATION}, 6),
+    ({"optimize": "fold_bn"}, "ported"),
+    ({"optimize": "int8", "calibration": _CALIBRATION}, "ported"),
     ({"optimize": "int8", "calibration": _CALIBRATION,
-      "calibration_percentile": 99.9}, 6),
+      "calibration_percentile": 99.9}, "ported"),
     ({"mesh": object()}, 8)])
 def test_predictor_unported_arguments(trained, kw, item):
     ckpt, _ = trained
@@ -363,6 +365,14 @@ def test_predictor_unported_arguments(trained, kw, item):
     if item is None:
         _same_refusal(port, lambda: jinference.OpenSetPredictor(
             ckpt, variant="tiny", image_size=SIZE, **kw))
+    elif item == "ported":
+        pred = port()
+        assert pred.model.folded
+        assert pred.model.quantized == (kw["optimize"] == "int8")
+        classes, scores = pred.predict(np.zeros((3, SIZE, SIZE, 3),
+                                                np.uint8))
+        assert classes.shape == scores.shape == (3,)
+        assert np.isfinite(scores).all()
     else:
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             port()
@@ -545,15 +555,26 @@ def test_predict_cli_argument_errors_match_jax(extra):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--optimize", "fold_bn"], 6), (["--optimize", "int8"], 6),
-    (["--optimize", "int8", "--calibration-images", "x/"], 6),
-    (["--optimize", "int8", "--calibration-percentile", "99.9"], 6),
+    (["--optimize", "fold_bn"], None), (["--optimize", "int8"], None),
+    (["--optimize", "int8", "--calibration-images", "a"], None),
+    (["--optimize", "int8", "--calibration-percentile", "99.9"], None),
     (["--devices", "2"], 8)])
 def test_predict_cli_unported_flags(trained, tmp_path, extra, item):
+    """``--devices`` raises its ROADMAP item; the ``--optimize`` flags are
+    ported: every image gets a row (the classes against JAX's CLI in
+    tests/test_torch_optimize.py).  ``a`` is a subdirectory of the tree,
+    named relative to ``--imagenet-directory``."""
     ckpt, tree = trained
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        ppredict.main(_cli(ckpt, tree, tmp_path / "x.csv", "--device",
-                           "cpu", *extra))
+    argv = _cli(ckpt, tree, tmp_path / "x.csv", "--device", "cpu",
+                "--imagenet-directory", str(tree), *extra)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            ppredict.main(argv)
+        return
+    assert ppredict.main(argv) == 0
+    rows = _rows(tmp_path / "x.csv")
+    assert rows[0] == ["path", "prediction", "score"] and len(rows) == 12
+    assert [r[0] for r in rows[1:]] == _paths(tree)
 
 
 def test_predict_cli_port_flags(trained, tmp_path, capsys):

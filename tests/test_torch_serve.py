@@ -1,7 +1,7 @@
 """The port's HTTP daemon (``serve.py``) on the CPU.
 
 The cases of the JAX package's ``tests/test_serve.py`` that need neither
-an exported artifact, a mesh nor int8, against the port's daemon around
+an exported artifact nor a mesh, against the port's daemon around
 a port-trained tiny entropic ``.pth`` (32 px, ``device="cpu"``): the
 health probe, single and JSON-batch requests against the offline
 predictor, rejection, the error paths, the keep-alive close on an
@@ -9,7 +9,9 @@ oversized body, the image cap, submit after close, the counters,
 coalescing, a connection burst, errors propagated and recovered, a wedged
 forward with bounded waits, close with a wedged forward, the compile
 grace, the warmed ladder, ``request_timeout 0``, and the CLI (arguments,
-and end to end as a subprocess with ``--device cpu``).  Then one case for
+the ``--optimize`` flags reaching the predictor, and end to end as a
+subprocess with ``--device cpu``; the int8 daemon is in
+tests/test_torch_optimize.py).  Then one case for
 each fault of the JAX daemon that the port repairs, each failing on the
 JAX behaviour: (a) a dead batcher thread, (b) ``close()`` ignoring the
 cold-bucket grace, (c) the grace scoped to the whole ladder; and the JAX
@@ -707,7 +709,7 @@ def test_daemon_matches_jax_daemon_in_float32(trained, monkeypatch):
 
 # -- the CLI --------------------------------------------------------------------
 
-def test_serve_cli_args():
+def test_serve_cli_args(tmp_path, monkeypatch):
     from openset_imagenet_tpu_torch.script.serve import get_args, main
 
     args = get_args(["model.pth", "auto", "--port", "0",
@@ -722,12 +724,33 @@ def test_serve_cli_args():
                  ["ck.pth", "3", "--calibration-images", "x/"]):
         with pytest.raises(SystemExit):
             get_args(argv)
-    for argv, item in ((["ck.pth", "3", "--optimize", "fold_bn"], 6),
-                       (["ck.pth", "3", "--optimize", "int8",
-                         "--calibration-images", "x/"], 6),
-                       (["ck.pth", "3", "--devices", "2"], 8)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            main(argv + ["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        main(["ck.pth", "3", "--devices", "2", "--device", "cpu"])
+
+    # The --optimize flags reach the predictor: fold_bn, and int8 with the
+    # calibration paths collected from --calibration-images (the predictor
+    # is replaced by a recorder that stops main before it serves).
+    class Built(Exception):
+        pass
+
+    def record(*args, **kw):
+        raise Built(kw)
+
+    monkeypatch.setattr("openset_imagenet_tpu_torch.inference."
+                        "OpenSetPredictor", record)
+    image = tmp_path / "cal" / "im.jpg"
+    image.parent.mkdir()
+    image.write_bytes(b"not decoded here")
+    for argv, want in (
+            (["--optimize", "fold_bn"], ("fold_bn", None, None)),
+            (["--optimize", "int8", "--calibration-images",
+              str(image.parent), "--calibration-percentile", "99.9"],
+             ("int8", [str(image)], 99.9))):
+        with pytest.raises(Built) as built:
+            main(["ck.pth", "3", *argv, "--device", "cpu"])
+        kw = built.value.args[0]
+        assert (kw["optimize"], kw["calibration"],
+                kw["calibration_percentile"]) == want
 
 
 def test_serve_cli_end_to_end(trained):

@@ -265,12 +265,17 @@ def test_post_training_modules_leave_jax_unloaded():
 
 
 def test_prediction_modules_leave_jax_unloaded():
-    """The prediction paths and the daemon import neither jax nor the JAX
-    package, nor PIL or triton (a decode imports PIL when it needs it)."""
+    """The prediction paths, the daemon and the inference optimizations
+    (folding, int8 quantization and its kernel's wrapper) import neither
+    jax nor the JAX package, nor PIL or triton (a decode imports PIL when
+    it needs it)."""
     code = (
         "import sys\n"
         "import openset_imagenet_tpu_torch.serve\n"
         "import openset_imagenet_tpu_torch.inference\n"
+        "import openset_imagenet_tpu_torch.optimize\n"
+        "import openset_imagenet_tpu_torch.models.quant\n"
+        "import openset_imagenet_tpu_torch.ops.int8_conv\n"
         "import openset_imagenet_tpu_torch.script.predict\n"
         "import openset_imagenet_tpu_torch.script.serve\n"
         "from openset_imagenet_tpu_torch.inference import "

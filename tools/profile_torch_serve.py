@@ -3,6 +3,7 @@
 time on the GPU.
 
     python tools/profile_torch_serve.py [--batch 64 256] [--train [--fused]]
+                                        [--optimize {fold_bn,int8}]
                                         [--trace-dir chiprun_out]
 
 Builds a full-width two-head resnet50 (116 classes, random weights from
@@ -14,7 +15,11 @@ make_train_step``: ghost batch-norm over 64 rows, the entropic loss
 through the Triton kernels, Adam at lr 1e-3); ``--fused`` adds
 ``model.fused_blocks`` and ``model.boundary_mask``, so every pointwise
 backward site of the bottlenecks runs through K5 (the fused step of
-PERF.md; its kernels form the ``K5`` category).  For each batch size it
+PERF.md; its kernels form the ``K5`` category).  ``--optimize`` profiles
+the forward of the optimized serving graph instead: ``fold_bn`` (every
+batch-norm folded into its conv, ``optimize.fold_inference``) or
+``int8`` (the block convs through ``int8_conv``, the ``int8_conv``
+category; abs-max calibration on 64 random images).  For each batch size it
 prints the step's median milliseconds (CUDA events), then one
 ``torch.profiler`` window of five steps: device-busy time, the idle share
 of the window, kernel launches per step, device time by kernel category
@@ -42,6 +47,7 @@ TOP = 12
 CATEGORIES = (
     ("K5", ("site_fused", "site_rows", "site_dw", "site_gate",
             "reduce_partials")),
+    ("int8_conv", ("conv_tc<", "conv_simt")),
     ("loss (Triton)", ("entropic_", "ce_fwd", "ce_bwd")),
     ("optimizer", ("multi_tensor", "foreach")),
     ("pool", ("pool",)),
@@ -69,6 +75,9 @@ def main(argv=None):
     ap.add_argument("--fused", action="store_true",
                     help="with --train: model.fused_blocks + boundary_mask "
                          "(K5 at every pointwise backward site)")
+    ap.add_argument("--optimize", choices=("fold_bn", "int8"), default=None,
+                    help="profile the forward of the optimized serving "
+                         "graph")
     ap.add_argument("--trace-dir", default="chiprun_out")
     args = ap.parse_args(argv)
 
@@ -85,13 +94,23 @@ def main(argv=None):
     print(f"device {torch.cuda.get_device_name(0)}")
     if args.fused and not args.train:
         ap.error("--fused profiles the train step: add --train")
+    if args.optimize and args.train:
+        ap.error("--optimize profiles the serving forward, not --train")
     model = build_resnet("resnet50", fc_layer_dim=116, out_features=116,
                          bn_stats_rows=64 if args.train else 0,
                          fused_blocks=args.fused, boundary_mask=args.fused,
                          generator=torch.Generator().manual_seed(0))
+    if args.optimize:
+        from openset_imagenet_tpu_torch import optimize
+
+        model = optimize.optimized_inference(
+            model.cuda().eval(), args.optimize,
+            calibration=np.random.default_rng(1).integers(
+                0, 256, (64, 224, 224, 3), np.uint8))
     model = model.cuda().to(memory_format=torch.channels_last)
     what = ("fused train step" if args.fused else
-            "train step" if args.train else "forward")
+            "train step" if args.train else
+            f"{args.optimize} forward" if args.optimize else "forward")
     if args.train:
         state = engine.create_state(model, engine.build_optimizer(
             NameSpace({"type": "adam", "lr": 1e-3}), 1))
@@ -137,7 +156,9 @@ def main(argv=None):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         name = ("torch_train_fused" if args.fused else
-                "torch_train" if args.train else "torch_serve")
+                "torch_train" if args.train else
+                f"torch_serve_{args.optimize}" if args.optimize else
+                "torch_serve")
         prof.export_chrome_trace(str(trace_dir / f"{name}_b{b}.json"))
 
         by_kernel = collections.Counter()
