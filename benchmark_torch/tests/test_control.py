@@ -1,0 +1,40 @@
+"""The control comes out not correct: the reference itself, computed in
+float8 (the precision below the configurations' bfloat16) in the
+program's place, fails at least one compared number against the limits
+of ``configs/resnet50-p1.json``.  Here at a tiny size on the CPU, with
+the same readings ``calibrate.py`` takes on the card at the cells' own
+sizes (PERF.md gives those)."""
+
+import types
+
+import pytest
+import torch
+
+from conftest import TINY, limits, traffic
+
+from benchmark_torch import calibrate
+from benchmark_torch.lib import compare, data, reference
+
+
+def _ctx(kind_traffic, seed):
+    return types.SimpleNamespace(config=dict(TINY), traffic=kind_traffic,
+                                 seed=seed, device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("seed", [101, 102, 103])
+def test_train_control_is_not_correct(seed):
+    readings = calibrate.control_train(
+        _ctx(traffic("train_b256"), seed), reference, compare, data)
+    ok, _ = compare.judge(readings["control"], limits()["train"])
+    assert not ok, readings
+
+
+@pytest.mark.parametrize("seed", [201, 202, 203])
+def test_answer_control_is_not_correct(seed):
+    tr = traffic("predict_b256", distinct_images=256, check_rows=128,
+                 calibration_images=16)
+    readings = calibrate.control_answers(_ctx(tr, seed), reference,
+                                         compare, data)
+    for kind in ("predict", "serve"):
+        ok, _ = compare.judge(readings["control"], limits()[kind])
+        assert not ok, readings
