@@ -1,0 +1,23 @@
+"""Train step (``train.make_train_step``): host milliseconds a traced step
+inside the program's ``train.step`` span (``openset_imagenet_tpu_torch/
+tracing.py``): enqueueing the step's work, and any wait for room in the
+launch queue while the host is ahead of the card."""
+
+
+def read(result):
+    if result.kind != "train":
+        return None
+    try:
+        from openset_imagenet_tpu_torch import tracing
+    except ImportError:  # a program without the span recorder
+        return None
+    records = tracing.snapshot()
+    # A figure of a run on a card: without one (no span carries device
+    # time) the step's kernels run inside its host span.
+    if not any(r.device_ms is not None for r in records):
+        return None
+    per_step = {}
+    for r in records:
+        if r.name == "train.step":
+            per_step[r.key] = per_step.get(r.key, 0.0) + 1e3 * (r.t1 - r.t0)
+    return sum(per_step.values()) / len(per_step) if per_step else None

@@ -36,6 +36,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from . import tracing
 from .checkpoint import infer_n_classes, load_checkpoint, resolve_model_cfg
 from .config import NameSpace
 from .optimize import optimized_inference
@@ -280,28 +281,31 @@ class OpenSetPredictor:
         return images.shape[0], self._forward(self.model, self._stage(images))
 
     def _finish(self, n: int, outputs, return_features: bool,
-                return_arrays: bool = False):
-        """Fetch + postprocess a dispatched forward (waits for the device)."""
+                return_arrays: bool = False, key=None):
+        """Fetch + postprocess a dispatched forward (waits for the device);
+        ``key`` is the chunk index its spans carry."""
         _, features, scores = outputs
-        scores = scores[:n].cpu().numpy()
-        features = features[:n].cpu().numpy()
-        self._warm_buckets.add(self._bucket(n))
-        class_scores = scores[:, :-1] if self.has_background else scores
-        pred = np.argmax(class_scores, axis=-1)
-        conf = np.max(class_scores, axis=-1)
-        # The returned score is the rejection measure of the mode, so
-        # re-applying the threshold to it reproduces the decisions here.
-        if self.mode == "objectosphere":
-            measure = np.linalg.norm(features, axis=-1) * conf
-        else:
-            measure = conf
-        if self.threshold > 0:
-            pred = np.where(measure < self.threshold, -1, pred)
-        if return_arrays:
-            return pred, measure, features, scores
-        if return_features:
-            return pred, measure, features
-        return pred, measure
+        with tracing.span("predict.fetch", key=key):
+            scores = scores[:n].cpu().numpy()
+            features = features[:n].cpu().numpy()
+        with tracing.span("predict.post", key=key):
+            self._warm_buckets.add(self._bucket(n))
+            class_scores = scores[:, :-1] if self.has_background else scores
+            pred = np.argmax(class_scores, axis=-1)
+            conf = np.max(class_scores, axis=-1)
+            # The returned score is the rejection measure of the mode, so
+            # re-applying the threshold to it reproduces the decisions here.
+            if self.mode == "objectosphere":
+                measure = np.linalg.norm(features, axis=-1) * conf
+            else:
+                measure = conf
+            if self.threshold > 0:
+                pred = np.where(measure < self.threshold, -1, pred)
+            if return_arrays:
+                return pred, measure, features, scores
+            if return_features:
+                return pred, measure, features
+            return pred, measure
 
     def predict(self, inputs: Iterable, return_features: bool = False,
                 return_arrays: bool = False):
@@ -327,6 +331,7 @@ class OpenSetPredictor:
         :meth:`predict`.  A decode error is raised after the chunk already
         on the device is yielded; closing the generator stops the producer.
         """
+        import itertools
         import queue
         import threading
 
@@ -338,12 +343,15 @@ class OpenSetPredictor:
 
         def produce():
             try:
-                for i in range(0, len(paths), batch_size):
+                for k, i in enumerate(range(0, len(paths), batch_size)):
                     if stop.is_set():
                         return
                     chunk = paths[i:i + batch_size]
-                    images = self._load_images(chunk)
-                    out_q.put((chunk, len(images), self._stage(images)))
+                    with tracing.span("predict.load", key=k):
+                        images = self._load_images(chunk)
+                    with tracing.span("predict.stage", key=k):
+                        staged = self._stage(images)
+                    out_q.put((chunk, len(images), staged))
                 out_q.put(None)
             except BaseException as exc:  # surfaced in order, re-raised below
                 out_q.put(exc)
@@ -351,33 +359,36 @@ class OpenSetPredictor:
         producer = threading.Thread(target=produce, daemon=True,
                                     name="osi-predict-decode")
         producer.start()
-        pending = None  # (chunk_paths, n, device outputs)
+        pending = None  # (chunk index, chunk_paths, n, device outputs)
         try:
-            while True:
-                item = out_q.get()
+            for k in itertools.count():
+                with tracing.span("predict.get", key=k):
+                    item = out_q.get()
                 if isinstance(item, BaseException):
                     # The chunk already dispatched is valid work: yield it
                     # first, so a caller flushing per chunk keeps every row
                     # before the bad input.
                     if pending is not None:
-                        pchunk, pn, pout = pending
+                        pk, pchunk, pn, pout = pending
                         pending = None
                         yield (pchunk, *self._finish(
-                            pn, pout, return_features, return_arrays))
+                            pn, pout, return_features, return_arrays, pk))
                     raise item
                 if item is None:
                     break
                 chunk, n, staged = item
-                outputs = self._forward(self.model, staged)
+                with tracing.span("predict.dispatch", key=k,
+                                  device=self.device):
+                    outputs = self._forward(self.model, staged)
                 if pending is not None:
-                    pchunk, pn, pout = pending
+                    pk, pchunk, pn, pout = pending
                     yield (pchunk, *self._finish(pn, pout, return_features,
-                                                 return_arrays))
-                pending = (chunk, n, outputs)
+                                                 return_arrays, pk))
+                pending = (k, chunk, n, outputs)
             if pending is not None:
-                pchunk, pn, pout = pending
+                pk, pchunk, pn, pout = pending
                 yield (pchunk, *self._finish(pn, pout, return_features,
-                                             return_arrays))
+                                             return_arrays, pk))
         finally:
             stop.set()
             # Unblock a producer waiting on a full queue, then let it end.

@@ -32,6 +32,7 @@ from typing import Callable, Iterator, NamedTuple, Optional
 
 import numpy as np
 
+from . import tracing
 from . import transforms as T
 
 
@@ -207,15 +208,19 @@ class InputPipeline:
                         window.append(submit(submitted))
                         submitted += 1
                     idxs, futs = window.pop(0)
-                    out_q.put(futs.result() if batch_mode else
-                              self._assemble(idxs,
-                                             [f.result() for f in futs]))
+                    with tracing.span("pipeline.assemble", key=b):
+                        batch = (futs.result() if batch_mode else
+                                 self._assemble(idxs,
+                                                [f.result() for f in futs]))
+                    with tracing.span("pipeline.put", key=b):
+                        out_q.put(batch)
                     b += 1
                 out_q.put(None)
             except BaseException as exc:  # surface worker errors to consumer
                 out_q.put(exc)
 
-        producer = threading.Thread(target=produce, daemon=True)
+        producer = threading.Thread(target=produce, daemon=True,
+                                    name="osi-pipeline")
         producer.start()
         try:
             while True:

@@ -32,6 +32,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from . import tracing
 from .checkpoint import (AsyncCheckpointer, load_checkpoint,
                          load_weights_any_format, save_checkpoint)
 from .config import _to_dumpable
@@ -361,17 +362,20 @@ def make_train_step(loss_fn: Callable,
     def step(state: TrainState, images, labels, mask):
         model = state.model
         device = _device_of(model)
-        imgs = _to_float(_on(device, images))
-        labels, mask = _on(device, labels), _on(device, mask).float()
-        _set_mode(model, True)
-        window = (contextlib.nullcontext() if bn_stats_rows is None
-                  else model.stats_window(bn_stats_rows))
-        with window:
-            logits, _ = model(imgs)
-        loss, _ = loss_fn(logits, labels, mask)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.apply_gradients()
+        with tracing.span("train.forward", device=device):
+            imgs = _to_float(_on(device, images))
+            labels, mask = _on(device, labels), _on(device, mask).float()
+            _set_mode(model, True)
+            window = (contextlib.nullcontext() if bn_stats_rows is None
+                      else model.stats_window(bn_stats_rows))
+            with window:
+                logits, _ = model(imgs)
+            loss, _ = loss_fn(logits, labels, mask)
+        with tracing.span("train.backward", device=device):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with tracing.span("train.optimizer", device=device):
+            state.apply_gradients()
         rows = mask.sum()
         return state, {"loss_sum": loss.detach() * rows, "count": rows}
 
@@ -457,17 +461,25 @@ def train_epoch(state: TrainState, pipeline, epoch: int,
     sums = None
     t0 = time.time()
     nb = len(pipeline)
-    batches = pipeline.epoch(epoch, start_batch=start_batch)
-    for i, batch in enumerate(batches, start=start_batch):
+    batches = iter(pipeline.epoch(epoch, start_batch=start_batch))
+    i = start_batch
+    while True:
+        with tracing.span("train.wait", key=i):
+            batch = next(batches, None)
+        if batch is None:
+            break
         step = (tail_step if tail_step is not None and i == nb - 1
                 else train_step)
-        state, m = step(state, batch.images, batch.labels, batch.mask)
+        with tracing.span("train.step", key=i):
+            state, m = step(state, batch.images, batch.labels, batch.mask)
         sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
-        if step_hook is not None and step_hook(state, i + 1):
+        i += 1
+        if step_hook is not None and step_hook(state, i):
             break
     if sums is not None:
-        count, loss_sum = torch.stack(
-            [sums["count"], sums["loss_sum"].float()]).cpu().tolist()
+        with tracing.span("train.fetch"):
+            count, loss_sum = torch.stack(
+                [sums["count"], sums["loss_sum"].float()]).cpu().tolist()
         elapsed = time.time() - t0
         if count:
             trackers["j"].update(loss_sum / count, count)
