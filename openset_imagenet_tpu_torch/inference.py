@@ -203,9 +203,10 @@ class OpenSetPredictor:
         self._decoded_cache = dict(zip(paths, batch))
         return batch
 
-    def _load_images(self, inputs) -> np.ndarray:
+    def _load_images(self, inputs, out=None) -> np.ndarray:
         """A uint8 ``[N, S, S, 3]`` array as given, or image paths decoded
-        by the reader (kept across calls).  Paths cached by the int8
+        by the reader (kept across calls); with ``out`` (a uint8 ``[N, S,
+        S, 3]`` array) written into it.  Paths cached by the int8
         calibration are served from the cache when the whole chunk hits
         it; either way a hit path leaves the cache."""
         if isinstance(inputs, np.ndarray):
@@ -214,17 +215,22 @@ class OpenSetPredictor:
                 raise ValueError(f"expected uint8 [N, {self.image_size}, "
                                  f"{self.image_size}, 3], got {inputs.dtype}"
                                  f" {inputs.shape}")
-            return inputs
-        paths = list(inputs)
-        if paths and self._decoded_cache:
-            hits = [self._decoded_cache.get(p) for p in paths]
-            for p in paths:
-                self._decoded_cache.pop(p, None)
-            if all(h is not None for h in hits):
-                return np.stack(hits)
-        batch, self._reader = decode_serving_paths(
-            paths, self.image_size, reader=self._reader)
-        return batch
+            batch = inputs
+        else:
+            paths, batch = list(inputs), None
+            if paths and self._decoded_cache:
+                hits = [self._decoded_cache.get(p) for p in paths]
+                for p in paths:
+                    self._decoded_cache.pop(p, None)
+                if all(h is not None for h in hits):
+                    batch = np.stack(hits, out=out)
+            if batch is None:
+                batch, self._reader = decode_serving_paths(
+                    paths, self.image_size, reader=self._reader, out=out)
+        if out is None or batch is out:
+            return batch
+        out[...] = batch
+        return out
 
     def _bucket(self, n: int) -> int:
         """Padded batch size for an ``n``-image request: the next power of
@@ -263,22 +269,28 @@ class OpenSetPredictor:
             b = self._bucket(b + 1)
 
     # -- prediction -----------------------------------------------------------
-    def _stage(self, images: np.ndarray) -> np.ndarray:
-        """The batch padded with zero rows to its bucket, in a host buffer
-        for the predictor's device."""
-        n = images.shape[0]
+    def _stage(self, inputs, key=None):
+        """``(n, batch)``: the ``n`` images of ``inputs`` (paths, decoded
+        by the reader, or a uint8 array) padded with zero rows to their
+        bucket, in a host buffer for the predictor's device; paths are
+        decoded straight into it.  ``key`` is the chunk index its spans
+        carry."""
+        if not isinstance(inputs, np.ndarray):
+            inputs = list(inputs)
+        n = len(inputs)
         bucket = self._bucket(n)
-        if self.device.type != "cuda" and bucket == n:
-            return images
-        staged = _host_buffer((bucket, *images.shape[1:]), self.device)
-        staged[:n] = images
-        staged[n:] = 0
-        return staged
-
-    def _dispatch(self, images: np.ndarray):
-        """Pad to the bucket and launch the forward (asynchronous on CUDA).
-        Returns ``(n, device outputs)`` for :meth:`_finish`."""
-        return images.shape[0], self._forward(self.model, self._stage(images))
+        with tracing.span("predict.load", key=key):
+            if self.device.type != "cuda" and bucket == n:
+                staged = self._load_images(inputs)
+            else:
+                staged = _host_buffer(
+                    (bucket, self.image_size, self.image_size, 3),
+                    self.device)
+                self._load_images(inputs, out=staged[:n])
+        with tracing.span("predict.stage", key=key):
+            if n < bucket:   # never a write to the caller's own array
+                staged[n:] = 0
+        return n, staged
 
     def _finish(self, n: int, outputs, return_features: bool,
                 return_arrays: bool = False, key=None):
@@ -315,17 +327,19 @@ class OpenSetPredictor:
         ``return_features``; + features and the full softmax matrix with
         ``return_arrays``); rejected samples get class ``-1``.
         """
-        n, outputs = self._dispatch(self._load_images(inputs))
-        return self._finish(n, outputs, return_features, return_arrays)
+        n, staged = self._stage(inputs)
+        return self._finish(n, self._forward(self.model, staged),
+                            return_features, return_arrays)
 
     def predict_stream(self, paths, batch_size: int = 64, prefetch: int = 2,
                        return_features: bool = False,
                        return_arrays: bool = False):
         """Pipelined bulk prediction: yields ``(chunk_paths, *results)``.
 
-        A producer thread decodes and stages chunk k+1 while the device
-        runs the forward of chunk k (dispatched asynchronously) and the
-        caller's thread postprocesses chunk k-1 (JAX ``inference.py:
+        A producer thread decodes chunk k+1 straight into its staging
+        buffer (page-locked on CUDA, padded to its bucket) while the
+        device runs the forward of chunk k (dispatched asynchronously) and
+        the caller's thread postprocesses chunk k-1 (JAX ``inference.py:
         433-512``).  Chunks are ``batch_size`` rows but the last, results
         come in input order and are bitwise equal to per-chunk
         :meth:`predict`.  A decode error is raised after the chunk already
@@ -347,11 +361,7 @@ class OpenSetPredictor:
                     if stop.is_set():
                         return
                     chunk = paths[i:i + batch_size]
-                    with tracing.span("predict.load", key=k):
-                        images = self._load_images(chunk)
-                    with tracing.span("predict.stage", key=k):
-                        staged = self._stage(images)
-                    out_q.put((chunk, len(images), staged))
+                    out_q.put((chunk, *self._stage(chunk, key=k)))
                 out_q.put(None)
             except BaseException as exc:  # surfaced in order, re-raised below
                 out_q.put(exc)

@@ -31,6 +31,12 @@ form's affine map from given statistics (training: it also updates the
 running statistics) or from the running statistics (eval): the JAX
 ``BNAffine`` that the fused-backward bottleneck uses.
 
+On CUDA tensors the forward runs through the hand-written kernels of
+:mod:`..ops.batch_norm` (statistics, affine map and backward, two kernel
+launches each way, bit-equal to the written-out map given the same
+statistics); on CPU tensors it is the written-out math below.
+``use_kernel = False`` runs the written-out math on CUDA tensors too.
+
 Parameters and buffers keep the reference torch names (``weight``,
 ``bias``, ``running_mean``, ``running_var``) so ``state_dict`` keys match
 the reference checkpoints.  ``momentum`` is the flax convention (weight of
@@ -43,6 +49,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from ..ops.batch_norm import batch_norm
 
 BN_MOMENTUM = 0.9
 BN_EPSILON = 1e-5
@@ -73,6 +81,7 @@ class BatchNorm(nn.Module):
                              torch.zeros(features, device=device))
         self.register_buffer("running_var",
                              torch.ones(features, device=device))
+        self.use_kernel = True   # False: the written-out math on CUDA
 
     @staticmethod
     def _channel(t: torch.Tensor) -> torch.Tensor:
@@ -116,6 +125,11 @@ class BatchNorm(nn.Module):
         return self._fold(mean, var)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_kernel and x.is_cuda:
+            return batch_norm(x, self.weight, self.bias, self.running_mean,
+                              self.running_var, training=self.training,
+                              stats_rows=self.stats_rows, eps=self.eps,
+                              momentum=self.momentum)
         if self.training:
             mean, var = self._batch_stats(x)
         else:

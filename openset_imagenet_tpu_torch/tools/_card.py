@@ -130,3 +130,28 @@ def flush_l2(nbytes: int = 256 << 20) -> None:
         buf = _FLUSH[nbytes] = torch.zeros(nbytes, dtype=torch.uint8,
                                            device="cuda")
     buf.add_(1)
+
+
+def cold_in_turns(fns: dict, reps: int = 5,
+                  lead_cycles: int = 1 << 20) -> dict:
+    """Median device milliseconds of one call of each of ``fns`` (name ->
+    callable), called in turns ``reps`` times after one warm call each.
+    Before each call the L2 is flushed (:func:`flush_l2`) and a spin
+    kernel of ``lead_cycles`` clock cycles runs, during which the host
+    enqueues the call, so the CUDA events around it bracket the device's
+    work and not the host's launches."""
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            flush_l2()
+            torch.cuda._sleep(lead_cycles)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}

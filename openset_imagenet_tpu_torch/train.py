@@ -632,14 +632,17 @@ def _make_reader(cfg, crop: int = 224):
     return PILReader(crop=crop, resize=resize)
 
 
-def decode_serving_paths(paths, image_size: int, reader=None):
+def decode_serving_paths(paths, image_size: int, reader=None, out=None):
     """Image paths -> one ``uint8 [N, image_size, image_size, 3]`` batch
     by the serving decode policy (JAX ``train.py:740-765``): the ``auto``
     reader (the native batch reader, else PIL), shorter-side resize, then
     center crop, the eval transform.
 
     Returns ``(batch, reader)``, so that callers keep the reader (the
-    native batch reader owns a thread pool) across calls.
+    native batch reader owns a thread pool) across calls.  With ``out``
+    (a ``uint8 [N, image_size, image_size, 3]`` array) a reader of one
+    path at a time writes its images into it and ``out`` is returned; a
+    batch reader returns its own array.
     """
     if reader is None:
         from .config import NameSpace
@@ -650,7 +653,7 @@ def decode_serving_paths(paths, image_size: int, reader=None):
         return np.zeros((0, image_size, image_size, 3), np.uint8), reader
     if hasattr(reader, "read_batch"):
         return reader.read_batch(paths, [None] * len(paths)), reader
-    return np.stack([reader(p, None) for p in paths]), reader
+    return np.stack([reader(p, None) for p in paths], out=out), reader
 
 
 def _not_ported(what: str) -> NotImplementedError:

@@ -6,7 +6,11 @@ Triton streaming probes (K7), and the CUDA C++ int8 convolution of the
 quantized serving graph (``int8_conv``, bit-equal to its plain version at
 every resnet50 shape, ragged and grouped shapes and extreme operands; 52
 launches a resnet50 int8 forward, whose output equals the same forward
-through the plain version).  Marked ``cuda``: skipped where there is no
+through the plain version), and the Triton batch-norm kernels
+(``ops/batch_norm.py``: the apply bit-equal to its plain version, the
+statistics and backward against theirs, the model's train step and eval
+forward against the written-out batch-norm, their launches and
+refusals).  Marked ``cuda``: skipped where there is no
 CUDA device (or, for the Triton kernels, no Triton).  On a
 GPU host run ``python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py`` (``--noconftest``: the suite's conftest imports
@@ -1246,3 +1250,339 @@ def test_int8_resnet50_forward_goes_through_the_kernel(cuda_i8,
         assert torch.equal(feats, plain_feats)
     finally:
         torch.backends.cudnn.deterministic = deterministic
+
+
+# -- the batch-norm kernels (ops/batch_norm.py, Triton) ----------------------
+#
+# The apply bit-equal to its plain version given the same statistics, in
+# both forms, layouts and in bfloat16, float16 and float32; the statistics
+# and running statistics within float32 rounding (another summation order,
+# rtol 1e-5); the backward against bn_grad_plain (dx bit-equal outside the
+# window, within 1e-3 in norm inside it in bfloat16, the share rounding
+# differently where its sums differ in the last bit; dweight and dbias
+# within 1e-5 in norm) and against autograd of the written-out path; every
+# launch twice with the same bits.
+
+BN_SHAPES = [(8, 64, 14, 14), (7, 48, 5, 3), (4, 200, 6, 6), (3, 2048, 7, 7),
+             (2, 8, 9, 9)]
+
+
+def _bn_same(a, b):
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(view), b.view(view)))
+
+
+def _bn_case(device, shape, dtype, layout, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = shape[1]
+    fmt = (torch.channels_last if layout == "channels_last"
+           else torch.contiguous_format)
+    draw = lambda scale, shift: (torch.randn(*shape, generator=gen,
+                                             device=device) * scale + shift
+                                 ).to(dtype).contiguous(memory_format=fmt)
+    vec = lambda lo, hi: torch.rand(c, generator=gen, device=device) * (
+        hi - lo) + lo
+    return (draw(2.0, 0.5), draw(1.0, 0.0), vec(0.5, 1.5), vec(-0.1, 0.1),
+            vec(-0.1, 0.1), vec(0.5, 1.5))
+
+
+@pytest.mark.parametrize("shape", BN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+@pytest.mark.parametrize("ghost", [True, False])
+def test_bn_apply_is_bit_equal_to_plain(cuda, shape, dtype, layout, ghost):
+    from openset_imagenet_tpu_torch.ops import batch_norm as bnk
+
+    x, _, w, b, mean, var = _bn_case(cuda, shape, dtype, layout)
+    before = bnk.LAUNCHES["bn_apply"]
+    y = bnk.bn_apply(x, mean, var, w, b, 1e-5, ghost)
+    assert bnk.LAUNCHES["bn_apply"] == before + 1
+    assert y.stride() == x.stride()
+    assert _bn_same(y, bnk.bn_apply_plain(x, mean, var, w, b, 1e-5, ghost))
+    assert _bn_same(y, bnk.bn_apply(x, mean, var, w, b, 1e-5, ghost))
+
+
+@pytest.mark.parametrize("shape", BN_SHAPES + [(256, 64, 56, 56)])
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+@pytest.mark.parametrize("rows", [1, 3, 0])
+def test_bn_stats_match_plain(cuda, shape, layout, rows):
+    from openset_imagenet_tpu_torch.ops import batch_norm as bnk
+
+    x, _, _, _, rm, rv = _bn_case(cuda, shape, torch.bfloat16, layout)
+    window = min(rows, shape[0]) or shape[0]
+    got_rm, got_rv, ref_rm, ref_rv = rm.clone(), rv.clone(), rm.clone(), \
+        rv.clone()
+    got = bnk.bn_stats(x, window, got_rm, got_rv, 0.9)
+    ref = bnk.bn_stats_plain(x, window, ref_rm, ref_rv, 0.9)
+    torch.testing.assert_close(got[:2], ref[:2], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got_rm, ref_rm, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(got_rv, ref_rv, rtol=1e-5, atol=1e-7)
+    again = bnk.bn_stats(x, window, rm.clone(), rv.clone(), 0.9)
+    assert torch.equal(got, again)
+
+
+def _bn_rel(a, b):
+    return float((a.float() - b.float()).norm()
+                 / max(float(b.float().norm()), 1e-30))
+
+
+@pytest.mark.parametrize("shape", BN_SHAPES + [(256, 256, 28, 28)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+@pytest.mark.parametrize("rows", [0, 1, 3, 1000])
+def test_bn_backward_matches_plain(cuda, shape, dtype, layout, rows):
+    from openset_imagenet_tpu_torch.ops import batch_norm as bnk
+
+    x, g, w, _, rm, rv = _bn_case(cuda, shape, dtype, layout, seed=rows)
+    window = min(rows, shape[0]) or shape[0]
+    stats = bnk.bn_stats_plain(x, window, rm, rv, 0.9)
+    ghost = rows > 0
+    before = dict(bnk.LAUNCHES)
+    got = bnk.bn_backward(g, x, w, stats, window, ghost, 1e-5)
+    assert bnk.LAUNCHES["bn_bwd"] == before["bn_bwd"] + 1
+    assert bnk.LAUNCHES["bn_fix"] == before["bn_fix"] + 1
+    ref = bnk.bn_grad_plain(g, x, w, stats, window, ghost, 1e-5)
+    assert got[0].stride() == x.stride()
+    assert _bn_same(got[0][window:], ref[0][window:])
+    assert _bn_rel(got[0][:window], ref[0][:window]) <= (
+        1e-3 if dtype == torch.bfloat16 else 1e-5)
+    for a, r in zip(got[1:], ref[1:]):
+        assert _bn_rel(a, r) <= 1e-5
+    again = bnk.bn_backward(g, x, w, stats, window, ghost, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # Without a window (eval): the direct term alone, bit for bit.
+    got = bnk.bn_backward(g, x, w, stats[:2].contiguous(), 0, ghost, 1e-5)
+    ref = bnk.bn_grad_plain(g, x, w, stats[:2], 0, ghost, 1e-5)
+    assert _bn_same(got[0], ref[0])
+    assert _bn_rel(got[1], ref[1]) <= 1e-5
+
+
+@pytest.mark.parametrize("rows", [0, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("training", [True, False])
+def test_bn_module_on_the_card_against_the_written_out_path(
+        cuda, rows, dtype, training):
+    """The module through the kernels against ``use_kernel=False``: the
+    output bit-equal in eval (and given the statistics, above), the
+    running statistics within float32 rounding, gradients by the CPU
+    tests' bounds (the ghost form's bfloat16 sums in autograd)."""
+    from openset_imagenet_tpu_torch.models.norm import BatchNorm
+    from openset_imagenet_tpu_torch.ops import batch_norm as bnk
+
+    x, g, w, b, rm, rv = _bn_case(cuda, (8, 64, 14, 14), dtype,
+                                  "channels_last", seed=9)
+    out = []
+    for use_kernel in (True, False):
+        bn = BatchNorm(64, stats_rows=rows, device=cuda).train(training)
+        with torch.no_grad():
+            for p, v in ((bn.weight, w), (bn.bias, b), (bn.running_mean, rm),
+                         (bn.running_var, rv)):
+                p.copy_(v)
+        bn.use_kernel = use_kernel
+        before = dict(bnk.LAUNCHES)
+        xg = x.clone().requires_grad_()
+        y = bn(xg)
+        torch.autograd.backward(y, g)
+        launched = {k: bnk.LAUNCHES[k] - before[k] for k in before}
+        out.append((y, bn.running_mean.clone(), bn.running_var.clone(),
+                    xg.grad, bn.weight.grad, bn.bias.grad, launched))
+    got, ref = out
+    assert got[6] == {"bn_stats": int(training), "bn_apply": 1,
+                      "bn_bwd": 1, "bn_fix": int(training)}
+    assert not any(ref[6].values())
+    if not training:
+        assert _bn_same(got[0], ref[0])
+    assert _bn_rel(got[0], ref[0]) <= (4e-3 if dtype == torch.bfloat16
+                                       else 1e-5)
+    for a, r in zip(got[1:3], ref[1:3]):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-7)
+    bound = (1e-2, 5e-2, 5e-2) if rows and dtype == torch.bfloat16 else \
+        (1e-4, 1e-4, 1e-4)
+    for a, r, t in zip(got[3:6], ref[3:6], bound):
+        assert float((a.float() - r.float()).abs().max()) <= t * float(
+            r.float().abs().max())
+
+
+def _bn_model_step(model, images, labels, use_kernel):
+    """Loss, logits and every parameter's gradient of one training
+    forward and backward, the batch-norms through the kernels (True, on
+    CUDA tensors) or written out (False)."""
+    from openset_imagenet_tpu_torch.models.norm import BatchNorm
+    from openset_imagenet_tpu_torch.ops import fused_loss
+
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.use_kernel = use_kernel
+    model.train()
+    model.zero_grad(set_to_none=True)
+    logits, _ = model(images)
+    loss, _ = fused_loss.entropic_openset_loss_fused(
+        logits, labels, torch.ones_like(labels, dtype=torch.float32))
+    loss.backward()
+    return loss.detach(), logits.detach(), {
+        n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("variant,size,batch,ghost,dtype,bound,exact", [
+    ("tiny50", 32, 8, 2, torch.float32, 1e-4, True),
+    ("resnet50", 224, 256, 64, torch.bfloat16, 2e-2, False),
+    ("resnet50", 112, 16, 16, torch.bfloat16, 2e-2, True)])
+def test_bn_model_train_step_against_the_written_out_path(
+        cuda, variant, size, batch, ghost, dtype, bound, exact):
+    """One training step's gradients through the kernels against the
+    written-out batch-norm, from one state (cuDNN deterministic, no TF32).
+
+    Every parameter's gradient within ``bound`` relative in norm of the
+    written-out path's (resnet50 at chip_smoke.py phase 5's
+    configuration, batch 256, 224 px, a window of 64 images, by its
+    model-level rule, 2e-2).  With ``exact``, the same step also runs in
+    float64 on the CPU, written out, and each kernel gradient is no
+    further from that witness than the written-out path's by more than
+    ``bound``, and within ``bound`` of the written-out path's or nearer
+    the witness.  tiny50 in float32 takes the second arm: the written-out
+    path forms ``dweight`` as ``inv * (sum g x - mean * sum g)``, which
+    cancels in float32 (the kernels sum ``g * (x - mean)``).  resnet50 at
+    112 px and a window of 16 images in bfloat16 lies ~0.2 from the
+    witness on both paths, the stem's gradients amplifying the forward's
+    roundings.  The loss within 1e-2; two kernel steps bitwise equal; one
+    launch of each kernel per batch-norm."""
+    import copy
+
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.config import NameSpace
+    from openset_imagenet_tpu_torch.models.norm import BatchNorm
+    from openset_imagenet_tpu_torch.ops import batch_norm as bnk
+
+    model = engine.build_model(NameSpace({"model": {
+        "variant": variant, "bn_stats_rows": ghost}}), 116, dtype=dtype).to(
+        memory_format=torch.channels_last)
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.random((batch, size, size, 3)).astype(
+        np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.integers(-1, 116, batch).astype(
+        np.int32)).to(cuda)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        state = copy.deepcopy(model.state_dict())
+        before = dict(bnk.LAUNCHES)
+        k1 = _bn_model_step(model, images, labels, True)
+        assert {k: bnk.LAUNCHES[k] - before[k] for k in before} == {
+            k: n_bn for k in before}
+        model.load_state_dict(state)
+        k2 = _bn_model_step(model, images, labels, True)
+        model.load_state_dict(state)
+        plain = _bn_model_step(model, images, labels, False)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    witness = {}
+    if exact:
+        ref = engine.build_model(NameSpace({"model": {
+            "variant": variant, "bn_stats_rows": ghost}}), 116,
+            dtype=torch.float64, device="cpu")
+        ref.load_state_dict(state)
+        witness = _bn_model_step(ref, images.cpu(), labels.cpu(), False)[2]
+    assert torch.equal(k1[1], k2[1])
+    assert all(torch.equal(k1[2][n], k2[2][n]) for n in k1[2])
+    assert abs(float(k1[0]) - float(plain[0])) <= 1e-2 * abs(float(plain[0]))
+    for name, grad in plain[2].items():
+        gap = _bn_rel(k1[2][name], grad)
+        if not exact:
+            assert gap <= bound, (name, gap)
+            continue
+        got = _bn_rel(k1[2][name].cpu(), witness[name])
+        ref = _bn_rel(grad.cpu(), witness[name])
+        assert gap <= bound or got < ref, (name, gap, got, ref)
+        assert got <= ref + bound, (name, gap, got, ref)
+
+
+def test_bn_eval_forward_is_bit_equal_and_one_launch_a_norm(cuda):
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.config import NameSpace
+    from openset_imagenet_tpu_torch.models.norm import BatchNorm
+    from openset_imagenet_tpu_torch.ops import batch_norm as bnk
+
+    model = engine.build_model(NameSpace({"model": {
+        "variant": "resnet50", "bn_stats_rows": 4}}), 8).to(
+        memory_format=torch.channels_last)
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for m in norms:   # running statistics away from (0, 1)
+            m.running_mean.copy_(torch.randn(m.running_mean.shape,
+                                             generator=gen) * 0.1)
+            m.running_var.copy_(torch.rand(m.running_var.shape,
+                                           generator=gen) + 0.5)
+    images = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (16, 112, 112, 3), np.uint8)).to(cuda)
+    step = engine.make_forward_step()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs = []
+        for use_kernel in (True, False):
+            for m in norms:
+                m.use_kernel = use_kernel
+            before = dict(bnk.LAUNCHES)
+            outs.append(step(model, images))
+            launched = {k: bnk.LAUNCHES[k] - before[k] for k in before}
+            assert launched == ({"bn_stats": 0, "bn_apply": len(norms),
+                                 "bn_bwd": 0, "bn_fix": 0}
+                                if use_kernel else
+                                dict.fromkeys(before, 0))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_bn_predict_chunk_goes_through_the_apply_kernel(cuda, tiny_ckpt):
+    from openset_imagenet_tpu_torch.inference import OpenSetPredictor
+    from openset_imagenet_tpu_torch.models.norm import BatchNorm
+    from openset_imagenet_tpu_torch.ops import batch_norm as bnk
+
+    pred = OpenSetPredictor(tiny_ckpt, variant="tiny", image_size=32,
+                            device=cuda)
+    n_bn = sum(isinstance(m, BatchNorm) for m in pred.model.modules())
+    images = np.random.default_rng(2).integers(0, 256, (9, 32, 32, 3),
+                                               np.uint8)
+    before = dict(bnk.LAUNCHES)
+    pred.predict(images)
+    assert {k: bnk.LAUNCHES[k] - before[k] for k in before} == {
+        "bn_stats": 0, "bn_apply": n_bn, "bn_bwd": 0, "bn_fix": 0}
+
+
+def test_bn_kernels_refuse_what_they_do_not_take(cuda):
+    from openset_imagenet_tpu_torch.ops import batch_norm as bnk
+
+    x, g, w, b, rm, rv = _bn_case(cuda, (4, 16, 6, 6), torch.bfloat16,
+                                  "channels_last")
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+        bnk.bn_apply(x.double(), rm, rv, w, b, 1e-5, True)
+    with pytest.raises(ValueError, match="channels-last or contiguous"):
+        bnk.bn_apply(x.permute(0, 1, 3, 2), rm, rv, w, b, 1e-5, True)
+    with pytest.raises(ValueError, match="channels-last or contiguous"):
+        bnk.bn_stats(x[:, ::2], 2, rm[:8].clone(), rv[:8].clone(), 0.9)
+    with pytest.raises(ValueError, match="float32"):
+        bnk.bn_apply(x, rm.double(), rv, w, b, 1e-5, False)
+    with pytest.raises(ValueError, match="on cuda"):
+        bnk.bn_apply(x, rm.cpu(), rv, w, b, 1e-5, False)
+    stats = bnk.bn_stats(x, 2, rm.clone(), rv.clone(), 0.9)
+    with pytest.raises(ValueError, match="does not match"):
+        bnk.bn_backward(g.float(), x, w, stats, 2, True, 1e-5)
+    with pytest.raises(ValueError, match="stats must be"):
+        bnk.bn_backward(g, x, w, stats[:2], 2, True, 1e-5)
+    # An expanded output gradient (stride 0) is taken as it is.
+    ones = torch.ones((), dtype=x.dtype, device=cuda).expand(x.shape)
+    got = bnk.bn_backward(ones, x, w, stats, 2, True, 1e-5)
+    ref = bnk.bn_grad_plain(ones, x, w, stats, 2, True, 1e-5)
+    assert _bn_same(got[0][2:], ref[0][2:])

@@ -414,9 +414,9 @@ def test_decoded_cache_decodes_once_and_evicts(trained, monkeypatch):
     decoded = []
     real = pinference.decode_serving_paths
 
-    def counting(ps, image_size, reader=None):
+    def counting(ps, image_size, reader=None, **kw):
         decoded.extend(ps)
-        return real(ps, image_size, reader=reader)
+        return real(ps, image_size, reader=reader, **kw)
 
     monkeypatch.setattr(pinference, "decode_serving_paths", counting)
     pred = pinference.OpenSetPredictor(ckpt, image_size=SIZE, device="cpu",

@@ -331,6 +331,19 @@ def test_predictor_reader_is_kept_and_arrays_still_work(trained):
         pred.predict(pixels.astype(np.float32))
 
 
+@pytest.mark.parametrize("n", [4, 3])
+def test_predictor_reads_a_read_only_array(trained, n):
+    """Staging pads into a buffer of its own: a caller's read-only array,
+    at its bucket's size or under it, is read and never written."""
+    ckpt, tree = trained
+    pred = pinference.OpenSetPredictor(ckpt, image_size=SIZE, device="cpu")
+    pixels, _ = engine.decode_serving_paths(_paths(tree)[:n], SIZE)
+    frozen = pixels.copy()
+    frozen.flags.writeable = False
+    for g, w in zip(pred.predict(frozen), pred.predict(pixels)):
+        np.testing.assert_array_equal(g, w)
+
+
 _CALIBRATION = np.zeros((1, SIZE, SIZE, 3), np.uint8)
 
 
