@@ -8,10 +8,12 @@ cell (a short window, then the check), printing the compared numbers (the
 lower readings: sound runs of the program); for each of
 ``--control-seeds``, the control (the reference itself in float8 in the
 program's place, against the float32 reference on the same inputs: the
-upper readings) and, for a training cell, the fault "half of the batch
-left out, the mean taken over the rest" (the reference on each batch's
-first half).  One JSON line each, then the largest program reading and
-the smallest control reading of every number.  Needs a CUDA card.
+upper readings; the configuration's family names that precision as its
+``control_quant``) and, for a training cell, the fault "half of the
+batch left out, the mean taken over the rest" (the reference on each
+batch's first half).  One
+JSON line each, then the largest program reading and the smallest
+control reading of every number.  Needs a CUDA card.
 """
 
 import argparse
@@ -26,23 +28,24 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "benchmark_torch"))
 
 import run as bench  # noqa: E402
+from benchmark_torch.lib import families  # noqa: E402
 
 
-def control_train(ctx, reference, compare, data):
+def control_train(ctx, compare, data):
     cfg = ctx.config
+    family = families.of(cfg)
     b = int(cfg["batch"])
     images = data.Images(ctx.seed, 3 * b, int(cfg["image_size"]))
     labels = data.labels(ctx.seed, 3 * b, int(cfg["n_classes"]),
                          float(cfg["negative_share"]))
     batches = [(images.batch(range(i * b, (i + 1) * b)),
                 labels[i * b:(i + 1) * b]) for i in range(3)]
-    w0 = reference.make_weights(cfg, ctx.seed, ctx.device)
-    ref = reference.train_steps(w0, batches, cfg)
-    out = {}
-    ctrl = reference.train_steps(w0, batches, cfg, quant="fp8")
-    out["control"] = compare.train_numbers(ctrl, ref)[0]
+    w0 = family.make_weights(cfg, ctx.seed, ctx.device)
+    ref = family.train_steps(w0, batches, cfg)
+    ctrl = family.train_steps(w0, batches, cfg, quant=family.control_quant)
+    out = {"control": compare.train_numbers(ctrl, ref)[0]}
     half = [(im[:b // 2], lab[:b // 2]) for im, lab in batches]
-    fault = reference.train_steps(w0, half, cfg)
+    fault = family.train_steps(w0, half, cfg)
     # The forward of the half batch is the full one's first half (the
     # batch-norm window lies inside it); only the loss lost rows.
     ref_half = (ref[0], ref[1][:b // 2], ref[2], ref[3])
@@ -50,20 +53,21 @@ def control_train(ctx, reference, compare, data):
     return out
 
 
-def control_answers(ctx, reference, compare, data):
+def control_answers(ctx, compare, data):
     import torch
 
     cfg, tr = ctx.config, ctx.traffic
+    family = families.of(cfg)
     images = data.Images(ctx.seed, int(tr["distinct_images"]),
                          int(cfg["image_size"]))
-    w = reference.make_weights(cfg, ctx.seed, ctx.device)
-    w = reference.calibrate_running_stats(
+    w = family.make_weights(cfg, ctx.seed, ctx.device)
+    w = family.calibrate_running_stats(
         w, images.batch(range(int(tr.get("calibration_images", 32)))), cfg)
     idx = data.rng(ctx.seed, 4).choice(images.n, int(tr["check_rows"]),
                                        replace=False)
     batch = images.batch(idx)
-    ref = reference.eval_logits(w, batch, cfg).cpu().numpy()
-    ctrl = reference.eval_logits(w, batch, cfg, quant="fp8")
+    ref = family.eval_logits(w, batch, cfg).cpu().numpy()
+    ctrl = family.eval_logits(w, batch, cfg, quant=family.control_quant)
     p = torch.softmax(ctrl, dim=-1).cpu().numpy()
     return {"control": compare.answer_numbers(p.argmax(1), p.max(1), ref)}
 
@@ -78,7 +82,7 @@ def main(argv=None) -> int:
     bench._caches()
     import torch
 
-    from benchmark_torch.lib import compare, data, harness, reference
+    from benchmark_torch.lib import compare, data, harness
 
     if not torch.cuda.is_available():
         print("calibrate.py: no CUDA card", file=sys.stderr)
@@ -109,7 +113,7 @@ def main(argv=None) -> int:
     for seed in args.control_seeds:
         ctx = ctx_for(seed)
         fn = control_train if traffic["kind"] == "train" else control_answers
-        readings = fn(ctx, reference, compare, data)
+        readings = fn(ctx, compare, data)
         harness.release(ctx.device)
         print(json.dumps({"seed": seed, **readings}), flush=True)
         for what, nums in readings.items():

@@ -1,7 +1,7 @@
 """The numbers that decide ``correct``, each against a limit of its own.
 
 Training (the first three steps of the window's own call and feed, held
-against :func:`.reference.train_steps`):
+against the family's ``train_steps``, :mod:`.families`):
 
 * ``loss_gap``: the widest ``|loss - ref| / |ref|`` over the three steps.
 * ``loss1_gap``: the same for the first step alone, the forward from the
@@ -25,7 +25,7 @@ against :func:`.reference.train_steps`):
   image and label of a distinct index (limit 0).
 
 Answers (prediction and serving; a sample drawn from the seed, held
-against :func:`.reference.eval_logits`):
+against the family's ``eval_logits``):
 
 * ``score_gap``: the widest ``|score - p_ref| / p_ref``, where ``p_ref`` is
   the reference's softmax probability of the returned class.  A class
@@ -63,7 +63,7 @@ def train_numbers(prog, ref) -> Tuple[dict, dict]:
     """``(numbers, where)``: the training numbers and the leaf each gap of
     norms was worst at.  ``prog`` and ``ref`` are ``(losses, first
     logits, first gradient norms by leaf, change norms by leaf)``, as
-    :func:`.reference.train_steps` returns them; the program's logits are
+    a family's ``train_steps`` returns them; the program's logits are
     moved to the reference's device."""
     prog_losses, prog_logits, prog_g1, prog_change = prog
     ref_losses, ref_logits, ref_g1, ref_change = ref

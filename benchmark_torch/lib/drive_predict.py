@@ -1,18 +1,25 @@
 """Bulk prediction traffic: ``OpenSetPredictor.predict_stream`` over image
 paths, as a user scores a test set.
 
-Set-up draws the seeded weights (:mod:`.reference`, running statistics
-taken from ``calibration_images`` seeded images), writes them as a
-``.pth`` through the program's ``save_checkpoint`` (the predictor loads
-only from a path), builds the predictor on it with the traffic's
-``optimize`` mode and the benchmark's reader (``reader=``; the paths name
-seeded images), and streams ``batch``-image chunks with ``prefetch``
-staged ahead.  ``distinct_images`` seeded images are repeated in an order
-drawn from the seed.  The window opens after ``warm_chunks`` chunks have
-been yielded and closes at the first yield ``seconds`` later;
-``predict_imgs_per_s`` is every image whose result was yielded in
-between over the window's seconds.  With ``--trace 1``, ``trace_chunks``
-further chunks run under the profiler after the window.
+Set-up draws the seeded weights of the configuration's family
+(:mod:`.families`; running statistics taken from ``calibration_images``
+seeded images), writes them as a ``.pth`` through the program's
+``save_checkpoint`` (the predictor loads only from a path), builds the
+predictor on it with the traffic's ``optimize`` mode and the benchmark's
+reader (``reader=``; the paths name seeded images), and streams
+``batch``-image chunks with ``prefetch`` staged ahead. ``distinct_images``
+seeded images are repeated in an order drawn from the seed. The window
+opens after ``warm_chunks`` chunks have been yielded and closes at the
+first yield ``seconds`` later. With ``--trace 0`` the profiler (device
+activity only) covers the window on the card, from a device sync at its
+start to one after its close: ``predict_gpu_us_per_img`` is the device's
+busy time in it over every image whose result was yielded in the window
+(the chunk in flight at the start ends before the trace does, the one in
+flight at the close inside it, so the trace holds as many chunks as the
+window yields). With ``--trace 1`` the window runs without it, the reader
+``predict.imgs_per_s`` takes every image yielded in it over its seconds,
+and ``trace_chunks`` further chunks run under the profiler after the
+window.
 
 Check: ``check_rows`` answers of the window drawn from the seed against
 the reference's eval-mode logits of the same images; every chunk of the
@@ -25,7 +32,7 @@ import math
 
 import numpy as np
 
-from . import compare, data, harness, profile, reference
+from . import compare, data, families, harness, profile
 
 
 def write_checkpoint(ctx: harness.Ctx, images: data.Images, path):
@@ -39,16 +46,17 @@ def write_checkpoint(ctx: harness.Ctx, images: data.Images, path):
     from openset_imagenet_tpu_torch.config import NameSpace
 
     cfg, tr, dev = ctx.config, ctx.traffic, ctx.device
-    w = reference.make_weights(cfg, ctx.seed, dev)
+    family = families.of(cfg)
+    w = family.make_weights(cfg, ctx.seed, dev)
     calib = int(tr.get("calibration_images", 32))
-    w = reference.calibrate_running_stats(w, images.batch(range(calib)), cfg)
-    model = engine.build_model(
-        NameSpace({"model": {"variant": cfg["variant"]}}),
-        int(cfg["n_classes"]), device="meta")
+    w = family.calibrate_running_stats(w, images.batch(range(calib)), cfg)
+    arch = family.model_options(cfg)
+    model = engine.build_model(NameSpace({"model": arch}),
+                               int(cfg["n_classes"]), device="meta")
     model.to_empty(device=dev)
     model.load_state_dict(w, strict=True)
     save_checkpoint(path, model, epoch=0, best_score=0.0,
-                    extra={"arch": {"variant": cfg["variant"]}})
+                    extra={"arch": arch})
     host = {k: v.detach().cpu() for k, v in w.items()}
     del model, w
     harness.release(dev)
@@ -63,7 +71,8 @@ def check_answers(ctx: harness.Ctx, weights: dict, images: data.Images,
     reference on the card."""
     dev = ctx.device
     w = {k: v.to(dev) for k, v in weights.items()}
-    ref = reference.eval_logits(w, images.batch(idx), ctx.config)
+    ref = families.of(ctx.config).eval_logits(w, images.batch(idx),
+                                              ctx.config)
     out = compare.answer_numbers(classes, scores, ref.cpu().numpy())
     del w, ref
     harness.release(dev)
@@ -94,7 +103,7 @@ def run(ctx: harness.Ctx) -> harness.Result:
     stream = predictor.predict_stream(paths, batch_size=batch,
                                       prefetch=int(tr["prefetch"]))
     answers, k = [], 0
-    t0 = t1 = trace = trace_s = setup = None
+    t0 = t1 = trace = trace_s = setup = window_trace = None
     try:
         while True:
             with spans.span("predict_stream.next"):
@@ -104,11 +113,15 @@ def run(ctx: harness.Ctx) -> harness.Result:
             k += 1
             if k == warm:
                 setup = harness.setup_seconds(ctx)
+                if not ctx.trace and profile.on_card(dev):
+                    window_trace = profile.Trace(dev).start()
                 t0 = harness.now()
             elif t0 is not None and t1 is None:
                 answers.append(item)
                 if harness.now() - t0 >= ctx.seconds:
                     t1 = harness.now()
+                    if window_trace is not None:
+                        window_trace.stop()
                     if not trace_chunks:
                         break
                     trace = profile.Trace(dev).start()
@@ -124,6 +137,9 @@ def run(ctx: harness.Ctx) -> harness.Result:
                            "the window closed: raise max_imgs_per_s")
     summary = (trace.summary(spans, trace_chunks) if trace is not None
                else None)
+    busy = window_trace.busy_s() if window_trace is not None else None
+    if window_trace is not None and busy is None:
+        raise RuntimeError("the window's trace holds no device operation")
     memory = harness.peak_memory(dev)
     del predictor, stream
     harness.release(dev)
@@ -142,9 +158,11 @@ def run(ctx: harness.Ctx) -> harness.Result:
     numbers["missing"] = missing
     window_s = t1 - t0
     done = int(sum(len(p) for _, p, _ in answers))
+    e2e = {"setup_s": setup}
+    if busy is not None:
+        e2e["predict_gpu_us_per_img"] = 1e6 * busy / done
     return harness.Result(
-        kind="predict", config=cfg,
-        e2e={"predict_imgs_per_s": done / window_s, "setup_s": setup},
+        kind="predict", config=cfg, e2e=e2e,
         counters={"window_s": window_s, "window_images": done,
                   "window_chunks": len(answers), "batch": batch,
                   "trace_s": trace_s},

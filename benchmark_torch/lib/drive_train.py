@@ -2,17 +2,20 @@
 closed loop, as ``train.worker`` runs them.
 
 Set-up builds one training state (the model from the configuration with
-the seeded weights of :mod:`.reference`, channels_last on the card, the
-entropic loss through ``make_loss_fn(fused="auto")``, Adam), one
-pipeline over seeded images and labels (``is_training`` and pinned
-batches as the worker builds it; ``num_workers`` and ``prefetch`` at the
-pipeline's defaults) and runs
-``warm_steps`` steps through the window's own ``train_epoch`` call.  The
+the seeded weights of its family, :mod:`.families`; channels_last on the
+card; the entropic loss through
+``make_loss_fn(fused="auto")``; Adam), one pipeline over seeded images and
+labels (``is_training`` and pinned batches as the worker builds it;
+``num_workers`` and ``prefetch`` at the pipeline's defaults) and runs
+``warm_steps`` steps through the window's own ``train_epoch`` call. The
 window opens after them, at a step boundary, and closes at the first step
-boundary ``seconds`` later; ``train_imgs_per_s`` is every image trained
-in between over the window's seconds (both ends after a device sync).
-With ``--trace 1``, ``trace_steps`` further steps run under the profiler
-after the window has closed.
+boundary ``seconds`` later (both ends after a device sync). With
+``--trace 0`` the profiler (device activity only) covers the window on the
+card: ``train_gpu_us_per_img`` is the device's busy time in it over every
+image trained in it. With ``--trace 1`` the window runs without it, the
+reader ``train.imgs_per_s`` takes every image trained in it over its
+seconds, and ``trace_steps`` further steps run under the profiler after
+the window has closed.
 
 The first three steps are the ones the reference follows: the first
 step's logits (a forward hook on the model, removed at once), the norm of
@@ -32,7 +35,7 @@ import math
 
 import numpy as np
 
-from . import compare, data, harness, profile, reference
+from . import compare, data, families, harness, profile
 
 CHECKED_STEPS = 3
 
@@ -84,14 +87,13 @@ def run(ctx: harness.Ctx) -> harness.Result:
         labels = data.labels(ctx.seed, n, int(cfg["n_classes"]),
                              float(cfg["negative_share"]))
 
-    model_opts = {"variant": cfg["variant"],
-                  "bn_stats_rows": int(cfg["bn_stats_rows"]),
-                  **tr.get("model", {})}
+    family = families.of(cfg)
+    model_opts = {**family.model_options(cfg), **tr.get("model", {})}
     with spans.span("setup.model"):
         model = engine.build_model(NameSpace({"model": model_opts}),
                                    int(cfg["n_classes"]), device="meta")
         model.to_empty(device=dev)
-        w0 = reference.make_weights(cfg, ctx.seed, dev)
+        w0 = family.make_weights(cfg, ctx.seed, dev)
         model.load_state_dict(w0, strict=True)
         if dev.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
@@ -120,7 +122,7 @@ def run(ctx: harness.Ctx) -> harness.Result:
 
     run_state = {"done": 0, "t0": None, "t1": None, "setup": None,
                  "window_steps": 0, "trace": None, "until": None,
-                 "finished": False, "trace_s": None}
+                 "finished": False, "trace_s": None, "window_trace": None}
     losses, prog_g1, prog_change = [], {}, {}
 
     def step(state, images_, labels_, mask_):
@@ -153,6 +155,8 @@ def run(ctx: harness.Ctx) -> harness.Result:
             with spans.span("sync"):
                 harness.sync(dev)
             rs["setup"] = harness.setup_seconds(ctx)
+            if not ctx.trace and profile.on_card(dev):
+                rs["window_trace"] = profile.Trace(dev).start()
             rs["t0"] = harness.now()
             return False
         if rs["t0"] is None:
@@ -164,6 +168,8 @@ def run(ctx: harness.Ctx) -> harness.Result:
                 harness.sync(dev)
             rs["t1"] = harness.now()
             rs["window_steps"] = done - warm
+            if rs["window_trace"] is not None:
+                rs["window_trace"].stop()
             if not trace_steps:
                 rs["finished"] = True
                 return True
@@ -192,6 +198,12 @@ def run(ctx: harness.Ctx) -> harness.Result:
     memory = harness.peak_memory(dev)
     window_s = run_state["t1"] - run_state["t0"]
     window_images = run_state["window_steps"] * batch
+    e2e = {"setup_s": run_state["setup"]}
+    if run_state["window_trace"] is not None:
+        busy = run_state["window_trace"].busy_s()
+        if busy is None:
+            raise RuntimeError("the window's trace holds no device operation")
+        e2e["train_gpu_us_per_img"] = 1e6 * busy / window_images
     t0, t1 = run_state["t0"], run_state["t1"]
     waits = spans.durations("pipeline.next", t0, t1)
     prog_losses = [float(x) for x in losses]
@@ -208,8 +220,8 @@ def run(ctx: harness.Ctx) -> harness.Result:
                 feed_errors += 1
             seen.add(j)
         batches.append((imgs, labs))
-    w_ref = reference.make_weights(cfg, ctx.seed, dev)
-    ref = reference.train_steps(w_ref, batches, cfg, steps=CHECKED_STEPS)
+    w_ref = family.make_weights(cfg, ctx.seed, dev)
+    ref = family.train_steps(w_ref, batches, cfg, steps=CHECKED_STEPS)
     numbers, where = compare.train_numbers(
         (prog_losses, first_logits[0], prog_g1, prog_change), ref)
     numbers["feed_errors"] = feed_errors
@@ -221,8 +233,6 @@ def run(ctx: harness.Ctx) -> harness.Result:
                 "losses": prog_losses, "ref_losses": ref[0]}
     return harness.Result(
         kind="train", config=cfg,
-        e2e={"train_imgs_per_s": window_images / window_s,
-             "setup_s": run_state["setup"]},
-        counters=counters, numbers=numbers,
+        e2e=e2e, counters=counters, numbers=numbers,
         attempted=run_state["window_steps"] * batch, failed=0,
         memory_peak_bytes=memory, spans=spans, profile=summary)

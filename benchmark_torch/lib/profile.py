@@ -46,6 +46,10 @@ def category(name: str) -> str:
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel: the window's start
 
 
+def on_card(device) -> bool:
+    return getattr(device, "type", str(device)) == "cuda"
+
+
 class Trace:
     """The profiler over a stretch of work on the card: ``start()`` starts
     it, waits for the card and launches a marker kernel at a noted host
@@ -97,6 +101,18 @@ class Trace:
         return summarize(self.prof.events(), spans.snapshot(), steps,
                          self.t_mark)
 
+    def busy_s(self) -> Optional[float]:
+        """Seconds in which an operation ran on the device (:func:`summarize`'s
+        ``busy_s``), or None when the trace holds none.  Read from the
+        profiler's raw results where it has them: ``prof.events()`` builds
+        an object an event, some 25 s for a 10 s window of a train cell."""
+        results = getattr(getattr(self.prof, "profiler", None),
+                          "kineto_results", None)
+        if results is not None:
+            return device_busy_s(results.events())
+        s = summarize(self.prof.events(), (), 0, self.t_mark)
+        return None if s is None else s["busy_s"]
+
 
 def _merge(intervals: np.ndarray) -> np.ndarray:
     """Union of ``[start, end]`` rows, sorted, as disjoint rows."""
@@ -110,6 +126,29 @@ def _merge(intervals: np.ndarray) -> np.ndarray:
         else:
             out.append([s, e])
     return np.asarray(out, dtype=np.float64)
+
+
+def device_busy_s(raw_events: Iterable) -> Optional[float]:
+    """The union of the device's operations, in seconds, over the
+    profiler's raw events (``_KinetoEvent``: ``name()``, ``device_type()``,
+    ``start_ns()``, ``end_ns()``), taking the operations that
+    :func:`summarize` takes: CUDA events that are no host range's
+    annotation and no :data:`MARKER`.  None when there are none."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    iv = []
+    for evt in raw_events:
+        if (evt.device_type() != cuda or evt.is_user_annotation()
+                or getattr(evt, "is_hidden_event", lambda: False)()
+                or MARKER in evt.name()):
+            continue
+        iv.append((evt.start_ns(), evt.end_ns()))
+    if not iv:
+        return None
+    ns = np.asarray(iv, dtype=np.int64)
+    merged = _merge(ns - ns[:, 0].min())
+    return float((merged[:, 1] - merged[:, 0]).sum()) / 1e9
 
 
 def summarize(events: Iterable, host_spans, steps: int,

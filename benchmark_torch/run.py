@@ -12,10 +12,13 @@ picks the generator ``benchmark_torch/lib/drive_<kind>.py``).  With
 ``benchmark_torch/metrics/<metric>.py`` (``read(result) -> float | None``;
 None leaves the metric out) from a traced stretch after the window.
 Every run checks what the timed path produced against the plain float32
-reference (``lib/reference.py``) and prints each compared number beside
+reference of the configuration's family (``lib/families.py``; the ResNet's
+is ``lib/reference.py``) and prints each compared number beside
 its limit, last on standard error and last in the result line, which is
 the last line of standard output.  Without a CUDA card, or with fewer
-cards than the cell asks for, it exits 3 and prints no result.
+cards than the cell asks for, it exits 3 and prints no result; with JAX,
+jaxlib, flax or the JAX package loaded once the window has closed, it
+names them and exits 4 without a result.
 """
 
 import time
@@ -33,6 +36,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 HERE = ROOT / "benchmark_torch"
 OUT = HERE / "out"
 sys.path.insert(0, str(ROOT))
+JAX_NAMES = {"jax", "jaxlib", "flax", "openset_imagenet_tpu"}
 
 
 def _caches() -> None:
@@ -64,6 +68,12 @@ def cell_files(bench: dict, name: str):
     return cell, config, traffic
 
 
+def jax_loaded() -> list:
+    """JAX, its libraries or the JAX package among the loaded modules, by
+    whole top-level name (the port's name begins with the package's)."""
+    return sorted({m.split(".", 1)[0] for m in sys.modules} & JAX_NAMES)
+
+
 def _applies(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
@@ -83,7 +93,8 @@ def result_line(bench: dict, cell: dict, res, trace: bool, device: dict,
     metrics = {}
     if not trace:
         for m in bench["end_to_end"]:
-            if _applies(m, cell["name"]):
+            # A device metric is taken on a card alone.
+            if _applies(m, cell["name"]) and m["name"] in res.e2e:
                 metrics[m["name"]] = {"value": float(res.e2e[m["name"]]),
                                       "unit": m["unit"]}
     else:
@@ -148,9 +159,11 @@ def main(argv=None) -> int:
         device["window_s"] = res.profile["window_s"]
     line = result_line(bench, cell, res, bool(args.trace), device, checks,
                        correct)
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise RuntimeError("jax was imported: the benchmark runs the port "
-                           "alone")
+    found = jax_loaded()
+    if found:
+        print(f"run.py: {', '.join(found)} loaded: the benchmark runs the "
+              "port alone", file=sys.stderr)
+        return 4
     record = OUT / f"{cell['name']}.seed{args.seed}.trace{args.trace}.json"
     with open(record, "w") as f:
         json.dump({"counters": res.counters, "e2e": res.e2e,
@@ -162,6 +175,12 @@ def main(argv=None) -> int:
           f"{t_torch:.3f} s, " + ", ".join(f"{n[6:]} {v:.3f} s"
                                            for n, v in sorted(phases.items())),
           file=sys.stderr)
+    c = res.counters
+    if c.get("window_s"):
+        print(f"window {c['window_images']} images in {c['window_s']:.4f} s"
+              f" ({c['window_images'] / c['window_s']:.1f} imgs/s"
+              + (", profiled" if not args.trace else "") + ")",
+              file=sys.stderr)
     for name, c in checks.items():
         print(f"check {name} {c['value']} limit {c['limit']}",
               file=sys.stderr)

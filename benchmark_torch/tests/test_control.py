@@ -13,7 +13,7 @@ import torch
 from conftest import TINY, limits, traffic
 
 from benchmark_torch import calibrate
-from benchmark_torch.lib import compare, data, reference
+from benchmark_torch.lib import compare, data
 
 
 def _ctx(kind_traffic, seed):
@@ -24,7 +24,7 @@ def _ctx(kind_traffic, seed):
 @pytest.mark.parametrize("seed", [101, 102, 103])
 def test_train_control_is_not_correct(seed):
     readings = calibrate.control_train(
-        _ctx(traffic("train_b256"), seed), reference, compare, data)
+        _ctx(traffic("train_b256"), seed), compare, data)
     ok, _ = compare.judge(readings["control"], limits()["train"])
     assert not ok, readings
 
@@ -33,8 +33,7 @@ def test_train_control_is_not_correct(seed):
 def test_answer_control_is_not_correct(seed):
     tr = traffic("predict_b256", distinct_images=256, check_rows=128,
                  calibration_images=16)
-    readings = calibrate.control_answers(_ctx(tr, seed), reference,
-                                         compare, data)
+    readings = calibrate.control_answers(_ctx(tr, seed), compare, data)
     for kind in ("predict", "serve"):
         ok, _ = compare.judge(readings["control"], limits()[kind])
         assert not ok, readings

@@ -147,5 +147,5 @@ def test_the_nine_entries_follow_the_benchmarks_rules():
         assert m["unit"] == "ms" and m["better"] == "lower"
         assert m["source"] == {"device": "device_trace",
                                "host": "host_clock"}[source]
-        assert m["moves"] == f"{kind}_imgs_per_s"
+        assert m["moves"] == f"{kind}_gpu_us_per_img"
         assert (ROOT / "benchmark_torch" / "metrics" / f"{name}.py").exists()

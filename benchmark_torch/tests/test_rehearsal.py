@@ -22,7 +22,8 @@ from conftest import ROOT, TINY, traffic
 
 from benchmark_torch import run as bench
 from benchmark_torch.lib import (compare, drive_predict, drive_serve,
-                                 drive_train, flops, profile, reference)
+                                 drive_train, families, flops, profile,
+                                 reference)
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -49,9 +50,10 @@ def test_config_files_match_the_counter_and_reference():
     for c in _bench()["configs"]:
         with open(ROOT / c["file"]) as f:
             cfg = json.load(f)
-        names = reference.param_names(cfg)
+        family = families.of(cfg)
+        names = family.param_names(cfg)
         assert len(names) == len(set(names))
-        assert flops.train_flops(cfg) == 3 * flops.forward_flops(cfg)
+        assert family.train_flops(cfg) == 3 * family.forward_flops(cfg)
 
 
 def test_benchmark_json_follows_its_rules():
@@ -157,18 +159,23 @@ def test_train_rehearsal(make_ctx):
     ctx = make_ctx(traffic("train_b256", warm_steps=4,
                            max_imgs_per_s=100000), trace=True)
     res = drive_train.run(ctx)
-    assert res.e2e["train_imgs_per_s"] > 0 and res.e2e["setup_s"] > 0
+    assert res.e2e == {"setup_s": res.e2e["setup_s"]} and \
+        res.e2e["setup_s"] > 0
     assert res.counters["window_steps"] > 0
     assert res.numbers["feed_errors"] == 0
     assert set(res.numbers) == {"loss_gap", "loss1_gap", "grad_gap",
                                 "logits_diff", "change_gap", "feed_errors"}
     assert "pipeline.next" in res.spans.names()
+    # Off the card the window has no device time: setup_s alone.
     line = _check_line(ctx, res, trace=False)
-    assert set(line["metrics"]) == {"train_imgs_per_s", "setup_s"}
+    assert set(line["metrics"]) == {"setup_s"}
     line = _check_line(ctx, res, trace=True)
     assert {"train.data_wait_ms", "train.mfu", "train.elementwise_ms",
             "train.conv_roofline", "train.loss_roofline",
-            "train.idle_share"} == set(line["metrics"])
+            "train.idle_share", "train.imgs_per_s"} == set(line["metrics"])
+    c = res.counters
+    assert line["metrics"]["train.imgs_per_s"]["value"] == pytest.approx(
+        c["window_images"] / c["window_s"])
     assert line["breakdown"]["idle_gaps"][0][0] == "pipeline.next"
 
 
@@ -177,11 +184,11 @@ def test_predict_rehearsal(make_ctx):
                            check_rows=32, calibration_images=8,
                            max_imgs_per_s=100000), trace=True)
     res = drive_predict.run(ctx)
-    assert res.e2e["predict_imgs_per_s"] > 0
+    assert set(res.e2e) == {"setup_s"} and res.counters["window_images"] > 0
     assert res.numbers["missing"] == 0 and res.failed == 0
     line = _check_line(ctx, res, trace=True)
     assert {"predict.mfu", "predict.elementwise_ms",
-            "predict.idle_share"} == set(line["metrics"])
+            "predict.idle_share", "predict.imgs_per_s"} == set(line["metrics"])
 
 
 def test_serve_rehearsal(make_ctx):
@@ -196,6 +203,53 @@ def test_serve_rehearsal(make_ctx):
     line = _check_line(ctx, res, trace=True)
     assert {"serve.mean_batch", "serve.gen_lag_p95_ms",
             "serve.idle_share"} == set(line["metrics"])
+
+
+class _FakeWindow:
+    """The profiler of a window on the card, as the generators drive it:
+    started once at the window's start, stopped once at its close."""
+
+    made = []
+
+    def __init__(self, device):
+        self.calls = []
+        _FakeWindow.made.append(self)
+
+    def start(self):
+        self.calls.append("start")
+        return self
+
+    def stop(self):
+        self.calls.append("stop")
+
+    def busy_s(self):
+        self.calls.append("busy_s")
+        return 0.25
+
+
+@pytest.mark.parametrize("kind", ["train", "predict"])
+def test_window_device_time_per_image(make_ctx, monkeypatch, kind):
+    """On a card a ``--trace 0`` run profiles its window alone, and the
+    end-to-end metric is the busy time over the window's images."""
+    monkeypatch.setattr(profile, "on_card", lambda device: True)
+    monkeypatch.setattr(profile, "Trace", _FakeWindow)
+    monkeypatch.setattr(_FakeWindow, "made", [])
+    if kind == "train":
+        ctx = make_ctx(traffic("train_b256", warm_steps=4,
+                               max_imgs_per_s=100000), seconds=0.2)
+        res = drive_train.run(ctx)
+    else:
+        ctx = make_ctx(traffic("predict_b256", batch=16, distinct_images=64,
+                               check_rows=32, calibration_images=8,
+                               max_imgs_per_s=100000))
+        res = drive_predict.run(ctx)
+    assert [w.calls for w in _FakeWindow.made] == [["start", "stop",
+                                                    "busy_s"]]
+    name = f"{kind}_gpu_us_per_img"
+    assert res.e2e[name] == pytest.approx(
+        1e6 * 0.25 / res.counters["window_images"])
+    line = _check_line(ctx, res, trace=False)
+    assert set(line["metrics"]) == {name, "setup_s"}
 
 
 def test_trace_reduction():
@@ -228,6 +282,49 @@ def test_trace_reduction():
     assert profile.summarize(events[:1], host, 1, 5.0) is None
 
 
+def test_raw_busy_time_equals_the_reduction():
+    """The window's busy time from the profiler's raw events is the
+    reduction's ``busy_s`` over the same operations."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    base = 1_760_000_000_000_000_000  # ns since the epoch, as kineto's
+
+    class Raw:
+        def __init__(self, name, s, e, device=cuda, annotation=False):
+            self._n, self._s, self._e = name, base + s, base + e
+            self._d, self._a = device, annotation
+
+        def name(self):
+            return self._n
+
+        def device_type(self):
+            return self._d
+
+        def is_user_annotation(self):
+            return self._a
+
+        def start_ns(self):
+            return self._s
+
+        def end_ns(self):
+            return self._e
+
+    rows = [("spin_kernel", 1000, 1001, cuda, False),
+            ("vectorized_elementwise_kernel", 1010, 1030, cuda, False),
+            ("sm90_xmma_fprop", 1025, 1050, cuda, False),
+            ("nvjet_tst_64x512", 1080, 1100, cuda, False),
+            ("train_step", 1000, 1040, cuda, True),
+            ("cudaLaunchKernel", 1000, 1100, cpu, False)]
+    raw = [Raw(*r) for r in rows]
+    evts = [types.SimpleNamespace(
+        name=n, device_type=d, is_user_annotation=a,
+        time_range=types.SimpleNamespace(start=s / 1e3, end=e / 1e3))
+        for n, s, e, d, a in rows]
+    want = profile.summarize(evts, (), 0, 0.0)["busy_s"]
+    assert profile.device_busy_s(raw) == pytest.approx(want, abs=1e-15)
+    assert profile.device_busy_s(raw) == pytest.approx(60e-9)
+    assert profile.device_busy_s(raw[:1] + raw[4:]) is None
+
+
 def test_run_without_a_card_exits_without_a_result():
     proc = subprocess.run(
         [sys.executable, str(ROOT / "benchmark_torch" / "run.py"),
@@ -238,3 +335,14 @@ def test_run_without_a_card_exits_without_a_result():
         pytest.skip("a card is present")
     assert proc.returncode == 3
     assert proc.stdout.strip() == ""
+
+
+def test_jax_check_takes_whole_top_level_names(monkeypatch):
+    before = bench.jax_loaded()
+    monkeypatch.setitem(sys.modules, "openset_imagenet_tpu_torch.fake",
+                        types.ModuleType("openset_imagenet_tpu_torch.fake"))
+    assert bench.jax_loaded() == before
+    for name in ("flax.core", "jaxlib", "openset_imagenet_tpu.models"):
+        monkeypatch.setitem(sys.modules, name, types.ModuleType(name))
+    assert {"flax", "jaxlib", "openset_imagenet_tpu"} <= set(
+        bench.jax_loaded())
