@@ -166,6 +166,13 @@ from a seed), and checks what comes out:
    daemon on the ``fold_bn`` predictor at 16 closed-loop clients within
    phase 3's bucket rule.  Launch counts are zeroed and read around the
    phase: ``int8_conv`` and no other kernel.
+11. the Swin: ``worker(cfg)`` on ``model: {arch: swin, variant: swin_b}``
+   (published widths) at batch 64 over phase 7's index, cut by
+   ``max_steps: 4``: four train steps through the loss kernels, the
+   attention path's ``COUNTS`` (24 calls a forward, 234 windows an
+   image), the SDPA kernels that ran (profiler names, one traced step),
+   the ``_curr`` checkpoint's ``extra.arch``, and ``OpenSetPredictor``
+   rebuilding a Swin from it on the card (finite scores on 64 images).
 
 Phase 2b holds K5 (``ops/fused_block_bwd.py``, CUDA C++ built by ``nvcc``
 at first use) against its plain version at every distinct resnet50 site
@@ -3345,6 +3352,71 @@ def loss_bound(name, b, c):
                           _card.F32_FLOP_PER_S)
 
 
+# -- phase 11: the Swin through the worker ------------------------------------
+
+SWIN_WINDOWS = 2 * 64 + 2 * 16 + 18 * 4 + 2 * 1  # an image's, a swin_b forward
+
+
+def swin_phase(torch, fl, out_dir):
+    """Phase 11: four swin_b train steps through ``worker(cfg)``, the
+    attention path's counts and kernels, the checkpoint rebuilt as a Swin
+    by the predictor."""
+    import shutil
+
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.checkpoint import read_metadata
+    from openset_imagenet_tpu_torch.inference import OpenSetPredictor
+    from openset_imagenet_tpu_torch.models import swin
+
+    write_index(out_dir)
+    write_val_index(out_dir)
+    shutil.rmtree(out_dir / "worker" / "swin", ignore_errors=True)
+    arch = {"arch": "swin", "variant": "swin_b"}
+    cfg = worker_cfg(out_dir, "swin", batch=BATCH, epochs=1, model=arch,
+                     max_steps=4)
+    for counts in (fl.LAUNCHES, swin.COUNTS):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    info = engine.worker(cfg)
+    seconds = time.perf_counter() - t0
+    counts = dict(swin.COUNTS)
+    print(f"swin worker: info {info}, {seconds:.2f} s (host clock, with "
+          f"set-up), peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"at batch {BATCH}, counts {counts}, launches {dict(fl.LAUNCHES)}")
+    check(info["stopped_mid_epoch"] == 4, f"swin: {info}")
+    check(counts == {"attention_calls": 4 * 24,
+                     "windows": 4 * BATCH * SWIN_WINDOWS},
+          f"swin: attention counts {counts}")
+    check(fl.LAUNCHES["entropic_fwd"] == 4 and fl.LAUNCHES["entropic_bwd"]
+          == 4, f"swin: K1/K2 not on every step: {dict(fl.LAUNCHES)}")
+    curr = cfg.output_directory / "entropic_curr.pth"
+    check(read_metadata(curr)["extra"]["arch"] == arch,
+          f"swin: arch {read_metadata(curr)['extra']}")
+    predictor = OpenSetPredictor(curr, device="cuda")
+    check(isinstance(predictor.model, swin.Swin), "swin: not rebuilt")
+    images = np.random.default_rng(SEED + 11).integers(
+        0, 256, (BATCH, IMAGE, IMAGE, 3), dtype=np.uint8)
+    classes, scores = predictor.predict(images)
+    check(np.isfinite(scores).all() and len(classes) == BATCH,
+          "swin: predictor scores")
+    # The attention kernels of one traced forward and backward.
+    model = predictor.model.train()
+    x = torch.from_numpy(images).cuda().float() / 255.0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        model(x)[0].float().sum().backward()
+        torch.cuda.synchronize()
+    names = sorted({e.name[:120] for e in prof.events()
+                    if any(f in e.name.lower() for f in (
+                        "fmha", "flash", "attention", "sdpa"))})
+    print(f"swin attention kernels: {names}")
+    check(bool(names), "swin: no fused attention kernel ran")
+    del predictor, model
+    torch.cuda.empty_cache()
+
+
 def main():
     import concurrent.futures
 
@@ -3528,6 +3600,10 @@ def main():
         v for k, v in opt_launches.items() if k != "int8_conv"),
         f"the optimized serving path's launches: {opt_launches}")
     print(f"phase optimize: ok ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    swin_phase(torch, fl, out_dir)
+    print(f"phase swin: ok ({time.perf_counter() - t0:.1f} s)")
 
     # Bounds at the shapes the times were taken at.
     replaces = {"entropic_fwd": (39, 256, 116),

@@ -331,11 +331,12 @@ def infer_n_classes(checkpoint) -> int:
 def infer_arch(checkpoint) -> dict:
     """Architecture metadata a checkpoint was saved with.
 
-    ``{"variant": str, "space_to_depth": bool}`` from the ``extra.arch``
-    the port's worker writes into every ``.pth``; ``{}`` for a reference
-    ``.pth`` (no ``extra``), a missing or unreadable file (JAX
-    ``checkpoint.py:372-393``).  Read memory-mapped, without loading the
-    weights.
+    The ``extra.arch`` the port's worker writes into every ``.pth``: a
+    ResNet's ``{"variant": str, "space_to_depth": bool}`` (as the JAX
+    worker writes it), another architecture's ``{"arch": str, "variant":
+    str}``; ``{}`` for a reference ``.pth`` (no ``extra``), a missing or
+    unreadable file (JAX ``checkpoint.py:372-393``).  Read memory-mapped,
+    without loading the weights.
     """
     try:
         meta = read_metadata(checkpoint)
@@ -348,12 +349,16 @@ def infer_arch(checkpoint) -> dict:
 def resolve_model_cfg(checkpoint, variant: Optional[str] = None) -> dict:
     """Model geometry for rebuilding a checkpoint's architecture.
 
-    ``{"variant": str, "space_to_depth": bool}``: an explicit ``variant``
-    wins, then the arch stored in the checkpoint (:func:`infer_arch`),
-    then the reference's resnet50 without space-to-depth -- the rule of
-    JAX ``checkpoint.py:396-407``, shared by ``script/evaluate.py`` and
-    :class:`~.inference.OpenSetPredictor`.
+    ``{"variant": str, "space_to_depth": bool}``, and ``"arch"`` where the
+    checkpoint names one (:func:`infer_arch`; none: a ResNet, the default
+    of :func:`~.train.build_model`): an explicit ``variant`` wins, then the
+    stored one, then the reference's resnet50 without space-to-depth --
+    the rule of JAX ``checkpoint.py:396-407``, shared by
+    ``script/evaluate.py`` and :class:`~.inference.OpenSetPredictor`.
     """
     arch = infer_arch(checkpoint)
-    return {"variant": variant or arch.get("variant", "resnet50"),
-            "space_to_depth": bool(arch.get("space_to_depth", False))}
+    cfg = {"variant": variant or arch.get("variant", "resnet50"),
+           "space_to_depth": bool(arch.get("space_to_depth", False))}
+    if "arch" in arch:
+        cfg["arch"] = arch["arch"]
+    return cfg

@@ -109,9 +109,22 @@ def _device_of(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _require_batch_norm(model: torch.nn.Module) -> None:
+    """Refuse a model these optimizations cannot take: folding and int8
+    rewrite a ResNet's conv -> batch-norm pairs, and another architecture
+    (the Swin: LayerNorm and linear layers) has none."""
+    if not isinstance(model, ResNet50):
+        raise ValueError(
+            "batch-norm folding and int8 quantization rewrite a ResNet's "
+            f"conv and batch-norm pairs; this model is a "
+            f"{type(model).__name__} {getattr(model, 'variant', '')}, which "
+            "has none: serve it unoptimized")
+
+
 def _twin(model: ResNet50, **over) -> ResNet50:
     """A model of ``model``'s geometry with ``over`` applied, on its
     device, in eval mode (weights not drawn: they are loaded next)."""
+    _require_batch_norm(model)
     cfg = {**model.config, **over}
     return ResNet50(**cfg, device=_device_of(model)).eval()
 
@@ -137,6 +150,7 @@ def _load(model: ResNet50, params: Any) -> ResNet50:
 
 
 def _fold(model: ResNet50) -> Tuple[ResNet50, Any]:
+    _require_batch_norm(model)
     variables = convert.state_dict_to_variables(model.state_dict())
     fparams = fold_batchnorm(variables["params"], variables["batch_stats"])
     return _load(fold_model(model), fparams), fparams
@@ -321,7 +335,9 @@ def optimized_inference(model: ResNet50, mode: str, calibration=None,
     ``image_size``), run in chunks of 64 whose last chunk is the final 64
     images; ``percentile`` clips each activation scale to that percentile
     of |activation|.  Returns the optimized model on ``model``'s device.
+    A model without batch-norm (a Swin) raises ``ValueError``.
     """
+    _require_batch_norm(model)
     if mode == "fold_bn":
         return fold_inference(model)
     if mode != "int8":

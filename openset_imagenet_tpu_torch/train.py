@@ -39,7 +39,8 @@ from .config import _to_dumpable
 from .dataset import ImagenetDataset
 from .events import SummaryWriter
 from .logger import configure_logger
-from .models.resnet import ResNet50, build_resnet
+from .models.resnet import build_resnet
+from .models.swin import build_swin
 from .ops.losses import (AverageMeter, EarlyStopping, entropic_openset_loss,
                          garbage_loss, softmax_loss)
 from .ops.metrics import confidence_sums, loss_regime_params
@@ -50,15 +51,19 @@ Tensor = torch.Tensor
 
 def build_model(cfg, n_classes: int, dtype: torch.dtype = torch.bfloat16,
                 device="cuda",
-                generator: Optional[torch.Generator] = None) -> ResNet50:
-    """Two-head ResNet from ``cfg.model`` (variant default ``resnet50``).
+                generator: Optional[torch.Generator] = None
+                ) -> torch.nn.Module:
+    """Two-head model from ``cfg.model``: ``arch`` ``"resnet"`` (the
+    default; variant default ``resnet50``) or ``"swin"`` (variant default
+    ``swin_b``, :mod:`.models.swin`).
 
     ``fc_layer_dim == out_features == n_classes`` and no logit bias, as
     the reference trains it (reference ``train.py:350-353``).  Built on
     the card unless the caller names another ``device`` (``"cpu"``);
     without a card the default raises torch's own error.  The initial
     weights are drawn from ``generator`` (:func:`set_seeds`; seed 0 when
-    None).
+    None).  A Swin takes none of the ResNet's options (``bn_stats_rows``,
+    ``space_to_depth``, ``remat``, ``fused_blocks``, ``boundary_mask``).
     """
     model_cfg = getattr(cfg, "model", None)
 
@@ -67,6 +72,19 @@ def build_model(cfg, n_classes: int, dtype: torch.dtype = torch.bfloat16,
             else default
         return default if value is None else value
 
+    arch = opt("arch", "resnet")
+    if arch == "swin":
+        given = [k for k in _RESNET_OPTIONS if opt(k, False)]
+        if given:
+            raise ValueError(f"model options {given} apply to ResNets "
+                             "only; a Swin has no batch-norm or stem conv "
+                             "to change")
+        return build_swin(opt("variant", "swin_b"), fc_layer_dim=n_classes,
+                          out_features=n_classes, logit_bias=False,
+                          dtype=dtype, device=device, generator=generator)
+    if arch != "resnet":
+        raise ValueError(f"unknown model arch {arch!r}; choose 'resnet' or "
+                         "'swin'")
     return build_resnet(
         opt("variant", "resnet50"), fc_layer_dim=n_classes,
         out_features=n_classes, logit_bias=False, dtype=dtype,
@@ -76,6 +94,25 @@ def build_model(cfg, n_classes: int, dtype: torch.dtype = torch.bfloat16,
         fused_blocks=bool(opt("fused_blocks", False)),
         boundary_mask=bool(opt("boundary_mask", False)),
         device=device, generator=generator)
+
+
+_RESNET_OPTIONS = ("bn_stats_rows", "space_to_depth", "remat",
+                   "fused_blocks", "boundary_mask")
+
+
+def _arch_metadata(cfg) -> dict:
+    """What a checkpoint stores under ``extra.arch`` to be rebuilt
+    (:func:`..checkpoint.resolve_model_cfg`): a ResNet's ``variant`` and
+    ``space_to_depth``, as the JAX worker writes them; for another
+    architecture its ``arch`` and ``variant``."""
+    model_cfg = getattr(cfg, "model", None)
+    arch = getattr(model_cfg, "arch", None) or "resnet"
+    if arch != "resnet":
+        return {"arch": arch, "variant": getattr(model_cfg, "variant", None)
+                or "swin_b"}
+    return {"variant": getattr(model_cfg, "variant", None) or "resnet50",
+            "space_to_depth": bool(getattr(model_cfg, "space_to_depth",
+                                           False))}
 
 
 def make_loss_fn(loss_type: str, unk_weight: float = 1.0,
@@ -268,7 +305,8 @@ class TrainState:
     each update; :meth:`eval_weights` puts it in the model.
     """
 
-    def __init__(self, model: ResNet50, optimizer: torch.optim.Optimizer,
+    def __init__(self, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer,
                  schedule: Callable[[int], float], step: int = 0,
                  accumulate_steps: int = 1, ema_decay: float = 0.0):
         self.model = model
@@ -337,7 +375,7 @@ class TrainState:
                 p.data = x
 
 
-def create_state(model: ResNet50, tx: Transform) -> TrainState:
+def create_state(model: torch.nn.Module, tx: Transform) -> TrainState:
     """Wrap an initialised model and a fresh optimizer over its
     parameters (and the EMA shadow of their current values)."""
     return TrainState(model, tx.make(model.parameters()), tx.schedule,
@@ -382,20 +420,24 @@ def make_train_step(loss_fn: Callable,
     return step
 
 
-def make_tail_step(loss_fn: Callable, model: ResNet50, n_tail: int,
+def make_tail_step(loss_fn: Callable, model: torch.nn.Module, n_tail: int,
                    train_step: Callable) -> Optional[Callable]:
     """The step for an epoch's ragged last batch (``train.py:987-1005``).
 
     Tail batches arrive padded with the padding last (``pipeline.
     InputPipeline._local_slice``), so a window of exactly ``n_tail``
     leading rows sees only valid samples.  A ghost window ``0 < G <=
-    n_tail`` already does, and then the regular step serves.  ``None``
-    when there is no ragged tail.  A ``fused_blocks`` model trains no
-    ragged tail, as the JAX worker drops it (``train.py:905-909``): build
-    its pipeline with ``drop_remainder=True`` (``n_tail`` 0).
+    n_tail`` already does, and then the regular step serves, as it does
+    for a model without batch-norm (no ``stats_window``: the Swin), whose
+    rows never meet.  ``None`` when there is no ragged tail.  A
+    ``fused_blocks`` model trains no ragged tail, as the JAX worker drops
+    it (``train.py:905-909``): build its pipeline with
+    ``drop_remainder=True`` (``n_tail`` 0).
     """
     if not n_tail:
         return None
+    if getattr(model, "stats_window", None) is None:
+        return train_step
     if model.fused_blocks:
         raise ValueError(
             f"a fused_blocks model trains no ragged tail batch ({n_tail} "
@@ -545,7 +587,8 @@ def get_arrays(model, pipeline, forward_step: Optional[Callable] = None
         parts.append(rows)
     if not parts:
         n_out = model.logits.weight.shape[0]
-        n_feat = model.resnet_base.fc.weight.shape[0]
+        fc = model.fc if hasattr(model, "fc") else model.resnet_base.fc
+        n_feat = fc.weight.shape[0]
         return (np.zeros((0,), np.float32),
                 np.zeros((0, n_out), np.float32),
                 np.zeros((0, n_feat), np.float32),
@@ -762,7 +805,8 @@ def worker(cfg, device=None) -> dict:
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     n_tail = len(train_ds) % batch_size
-    if tail_mode == "masked" and n_tail and model.fused_blocks:
+    if tail_mode == "masked" and n_tail and getattr(model, "fused_blocks",
+                                                     False):
         log.info("train_tail=masked is unsupported with fused blocks; "
                  "dropping the ragged tail batch instead")
         tail_mode = "drop"
@@ -856,12 +900,7 @@ def worker(cfg, device=None) -> dict:
     # disk when worker() returns.
     ckpt_writer = (AsyncCheckpointer()
                    if getattr(cfg, "async_checkpoint", True) else None)
-    model_cfg = getattr(cfg, "model", None)
-    arch = {"variant": (getattr(model_cfg, "variant", "resnet50")
-                        if model_cfg is not None else "resnet50"),
-            "space_to_depth": bool(getattr(model_cfg, "space_to_depth",
-                                           False))
-            if model_cfg is not None else False}
+    arch = _arch_metadata(cfg)
 
     def _save(f_name, ep, score, progress=None):
         extra = {"arch": arch}

@@ -1586,3 +1586,53 @@ def test_bn_kernels_refuse_what_they_do_not_take(cuda):
     got = bnk.bn_backward(ones, x, w, stats, 2, True, 1e-5)
     ref = bnk.bn_grad_plain(ones, x, w, stats, 2, True, 1e-5)
     assert _bn_same(got[0][2:], ref[0][2:])
+
+
+
+def test_swin_train_step_against_the_float32_reference(cuda):
+    """A bf16 train step of a tiny Swin on the card (32 px, embedding 32,
+    depths (2, 2), heads (2, 4), window 4: stage 1 shifted, stage 2 one
+    window; the masked attention through ``F.scaled_dot_product_attention``,
+    the loss through K1 and K2) against the benchmark's float32 reference
+    on the card (TF32 off): the logits within 2 % of their norm (the CPU
+    tests' bf16 rule, ``tests/test_torch_swin.py``), the loss within 1e-3,
+    every leaf's gradient within 10 % of the larger of its norm and the
+    median leaf's; ``COUNTS``: the attention path ran in all four
+    blocks."""
+    import statistics
+
+    from benchmark_torch.lib import family_swin as ref
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.config import NameSpace
+    from openset_imagenet_tpu_torch.models import swin
+
+    cfg = {"image_size": 32, "patch_size": 4, "embed_dim": 32,
+           "depths": [2, 2], "num_heads": [2, 4], "window_size": 4,
+           "mlp_ratio": 4, "fc_layer_dim": 6, "n_classes": 6}
+    rng = np.random.default_rng(3)
+    images = rng.integers(0, 256, (16, 32, 32, 3), dtype=np.uint8)
+    labels = rng.integers(-1, 6, 16)
+    w0 = ref.make_weights(cfg, 5, cuda)
+    model = engine.build_model(
+        NameSpace({"model": {"arch": "swin", "variant": "tiny_swin"}}), 6,
+        device=cuda)
+    model.load_state_dict(w0, strict=True)
+    model = model.to(memory_format=torch.channels_last).train()
+    before = swin.COUNTS["attention_calls"]
+    loss_fn = engine.make_loss_fn("entropic", fused="auto")
+    logits, _ = model(torch.from_numpy(images).to(cuda).float() / 255.0)
+    assert swin.COUNTS["attention_calls"] - before == 4
+    loss, _ = loss_fn(logits, torch.from_numpy(labels).to(cuda),
+                      torch.ones(16, device=cuda))
+    loss.backward()
+    params = {n: w0[n].clone().requires_grad_() for n in ref.param_names(cfg)}
+    with ref.exact_float32():
+        ref_loss, grads, ref_logits = ref.loss_and_grads(
+            params, images, labels, cfg, block=8)
+    assert float((logits - ref_logits).norm() / ref_logits.norm()) < 0.02
+    assert abs(float(loss.detach()) - ref_loss) < 1e-3 * abs(ref_loss)
+    named = dict(model.named_parameters())
+    median = statistics.median(float(g.norm()) for g in grads.values())
+    for name, g in grads.items():
+        gap = float((named[name].grad - g).norm())
+        assert gap < 0.1 * max(float(g.norm()), median), name
