@@ -170,9 +170,12 @@ from a seed), and checks what comes out:
    (published widths) at batch 64 over phase 7's index, cut by
    ``max_steps: 4``: four train steps through the loss kernels, the
    attention path's ``COUNTS`` (24 calls a forward, 234 windows an
-   image), the SDPA kernels that ran (profiler names, one traced step),
-   the ``_curr`` checkpoint's ``extra.arch``, and ``OpenSetPredictor``
-   rebuilding a Swin from it on the card (finite scores on 64 images).
+   image), the window-attention kernels' ``LAUNCHES`` (one forward and
+   one backward a block: 96 each), the attention kernels that ran in one
+   traced step (profiler names: ``osi_win_flash_fwd`` and
+   ``osi_win_flash_bwd`` alone, and no roll kernel), the ``_curr``
+   checkpoint's ``extra.arch``, and ``OpenSetPredictor`` rebuilding a
+   Swin from it on the card (finite scores on 64 images).
 
 Phase 2b holds K5 (``ops/fused_block_bwd.py``, CUDA C++ built by ``nvcc``
 at first use) against its plain version at every distinct resnet50 site
@@ -243,6 +246,17 @@ window, ``torch.batch_norm_elemt`` for the ghost apply,
 ``torch.batch_norm`` in eval for the eval apply,
 ``native_batch_norm_backward`` for the backward, ``torch.batch_norm`` in
 training beside statistics + apply), per shape and summed over a step.
+Phase 2h holds the Swin's window-attention kernels
+(``ops/window_attention.py``, Triton) at Swin-B's four stage shapes at
+batch 256 (bf16, windows of 7; unshifted and shifted by 3 at stages 1-3,
+unshifted at stage 4, whose map is one window): the output, the qkv
+gradient and the bias table's gradient against the plain version
+(relative in norm: 1e-3, 1e-2, 1e-5; the card tests give the reasons),
+the same bits on a second run; then, at stages 1 and 3 shifted by 3,
+cold and in turns, the forward and the forward + backward of the
+kernels, of the plain version and of the path they replace (roll, partition, mask, ``F.scaled_dot_product_attention``,
+merge, reverse roll: the ``library_ms`` yardstick, which the port never
+calls), and the backward alone, each beside its bytes bound.
 
 The launch counts are zeroed just before phase 3 and read after phase 4
 (the serving path: the batch-norm's apply kernel and not its
@@ -256,7 +270,9 @@ Float32 matmuls and convolutions run without TF32 (both backend flags
 off), so float32 comparisons on the card are exact float32.
 
 The second-to-last line is ``{"kernels": [...]}``: for each of the eight
-ported kernels, ``int8_conv`` (which replaces no TPU kernel: its
+ported kernels, the window attention (forward + backward at Swin-B's
+stage-1 shape, batch 256; ``replaces`` none, its launches phase 11's,
+its ``library_ms`` the SDPA path of phase 2h), ``int8_conv`` (which replaces no TPU kernel: its
 ``replaces`` names the XLA convolution of the JAX ``QuantConv``, and its
 numbers are the stage-1 3x3 conv at batch 256) and the three batch-norm
 kernels ``bn_stats``, ``bn_apply`` (its eval form) and ``bn_backward``
@@ -3352,6 +3368,149 @@ def loss_bound(name, b, c):
                           _card.F32_FLOP_PER_S)
 
 
+# -- phase 2h: the Swin's window attention ----------------------------------
+
+def sdpa_window_path(torch, qkv, table, ws, shift, heads):
+    """The library yardstick: the written-out Swin attention around
+    ``F.scaled_dot_product_attention`` (roll, window partition, the bias
+    and region mask as one additive bf16 mask padded to a multiple of 8,
+    the memory-efficient kernel, the transposes, merge and reverse roll).
+    Timed here only; the port never calls it."""
+    import torch.nn.functional as F
+
+    from openset_imagenet_tpu_torch.models import swin
+
+    b, h, w, c3 = qkv.shape
+    c, n = c3 // 3, ws * ws
+    y = torch.roll(qkv, (-shift, -shift), (1, 2)) if shift else qkv
+    y = swin.window_partition(y, ws)
+    bw = y.shape[0]
+    q, k, v = y.view(bw, n, 3, heads, c // heads).permute(2, 0, 3, 1,
+                                                           4).unbind(0)
+    index = swin.relative_position_index(ws, ws).to(qkv.device)
+    bias = table[index].view(n, n, heads).permute(2, 0, 1)
+    if shift:
+        region = swin.region_mask(h, w, ws, shift).to(qkv.device)
+        nw = region.shape[0]
+        mask = (region[:, None] + bias[None]).to(qkv.dtype)
+        mask = F.pad(mask, (0, -n % 8)).expand(
+            bw // nw, -1, -1, -1, -1).reshape(bw, heads, n, -1)[..., :n]
+    else:
+        mask = F.pad(bias.to(qkv.dtype), (0, -n % 8))[..., :n].unsqueeze(0)
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                         scale=(c // heads) ** -0.5)
+    out = swin.window_reverse(out.transpose(1, 2).reshape(bw, n, c), ws, h,
+                              w)
+    return torch.roll(out, (shift, shift), (1, 2)) if shift else out
+
+
+# Swin-B's four stages at batch 256: (map side, channels, heads, the shifts
+# its blocks take); stage 4's map is one window, so its blocks never shift.
+WA_STAGES = {"stage1": (56, 128, 4, (0, 3)), "stage2": (28, 256, 8, (0, 3)),
+             "stage3": (14, 512, 16, (0, 3)), "stage4": (7, 1024, 32, (0,))}
+WA_TIMED = ("stage1", "stage3")   # timed shifted by 3
+
+
+def window_attention_checks(torch, wak):
+    """Phase 2h: the window-attention kernels at Swin-B's four stage
+    shapes, batch 256, bf16, with every shift the main path gives each
+    stage (0 and 3; stage 4 only 0): output, qkv gradient and table
+    gradient against the plain version (the card tests' tolerances), the
+    backward twice with the same bits.  Then, at stages 1 and 3 shifted
+    by 3, cold and in turns, the forward and the forward + backward of the
+    kernels, of the plain version and of the SDPA path they replace,
+    beside the bytes bound (q, k, v read and the output written forward;
+    q, k, v and the output's gradient read and dq, dk, dv written
+    backward; the log-sum-exp both ways).  Returns the timed lines and,
+    under ``max_abs_err``, the largest absolute error of every check."""
+    from openset_imagenet_tpu_torch.tools import _card
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 400)
+    rel = lambda a, b: float((a.float() - b.float()).norm()
+                             / max(float(b.float().norm()), 1e-30))
+    lines, max_err = {}, 0.0
+    for label, (side, c, heads, shifts) in WA_STAGES.items():
+        b, ws = 256, 7
+        qkv = torch.randn(b, side, side, 3 * c, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        table = torch.randn(169, heads, generator=gen, device="cuda") * 0.5
+        grad = torch.randn(b, side, side, c, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+        def run(fn, shift, backward=True):
+            x = qkv.detach().requires_grad_(backward)
+            t = table.detach().requires_grad_(backward)
+            out = fn(x, t, ws, shift)
+            if not backward:
+                return out, None, None
+            out.backward(grad)
+            return out.detach(), x.grad, t.grad
+
+        sdpa = lambda x, t, w_, s_: sdpa_window_path(torch, x, t, w_, s_,
+                                                     heads)
+        for shift in shifts:
+            case = f"{label} shift {shift}"
+            got = run(wak.window_attention, shift)
+            again = run(wak.window_attention, shift)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"window attention {case}: two runs differ")
+            want = run(wak.window_attention_plain, shift)
+            errs = [rel(a, b) for a, b in zip(got, want)]
+            check(errs[0] <= 1e-3 and errs[1] <= 1e-2 and errs[2] <= 1e-5,
+                  f"window attention {case}: rel errs {errs}")
+            lib_errs = [rel(a, b) for a, b in zip(run(sdpa, shift), want)]
+            print(f"window attention {case} [{b}, {side}, {side}, {3 * c}] "
+                  f"heads {heads}: rel err against plain out {errs[0]:.2e}, "
+                  f"dqkv {errs[1]:.2e}, dtable {errs[2]:.2e}; the SDPA "
+                  f"path's {lib_errs[0]:.2e}, {lib_errs[1]:.2e}, "
+                  f"{lib_errs[2]:.2e}")
+            max_err = max([max_err] + [float((a.float() - b.float()).abs()
+                                             .max()) for a, b in zip(got,
+                                                                     want)])
+            del got, again, want
+            torch.cuda.empty_cache()
+        if label not in WA_TIMED:
+            del qkv, table, grad
+            torch.cuda.empty_cache()
+            continue
+        shift = 3
+        g = wak._geometry(qkv, table, ws, shift)
+        _, lse = wak._forward(qkv, table, g, ws, shift)
+        with torch.no_grad():
+            fwd = {"kernel": lambda: wak._forward(qkv, table, g, ws, shift),
+                   "plain": lambda: run(wak.window_attention_plain, shift,
+                                        False),
+                   "library": lambda: run(sdpa, shift, False)}
+            ms_fwd = _card.cold_in_turns(fwd, reps=5)
+        both = {"kernel": lambda: run(wak.window_attention, shift),
+                "plain": lambda: run(wak.window_attention_plain, shift),
+                "library": lambda: run(sdpa, shift)}
+        ms_both = _card.cold_in_turns(both, reps=5)
+        ms_bwd = _card.cold_in_turns({"kernel": lambda: wak._backward(
+            grad, qkv, table, lse, g, ws, shift)}, reps=5)["kernel"]
+        tokens, lse_bytes = b * side * side, lse.numel() * 4
+        bound_fwd = _card.bound_ms(tokens * c * 4 * 2 + lse_bytes)[0]
+        bound_bwd = _card.bound_ms(tokens * c * 7 * 2 + lse_bytes)[0]
+        print(f"window attention {label}: forward kernel "
+              f"{ms_fwd['kernel'] * 1e3:.1f} us (bound {bound_fwd * 1e3:.1f},"
+              f" {100 * bound_fwd / ms_fwd['kernel']:.0f}%), plain "
+              f"{ms_fwd['plain'] * 1e3:.1f}, SDPA path "
+              f"{ms_fwd['library'] * 1e3:.1f}; backward kernel "
+              f"{ms_bwd * 1e3:.1f} us (bound {bound_bwd * 1e3:.1f}, "
+              f"{100 * bound_bwd / ms_bwd:.0f}%); forward + backward kernels "
+              f"{ms_both['kernel'] * 1e3:.1f} us, plain "
+              f"{ms_both['plain'] * 1e3:.1f}, SDPA path "
+              f"{ms_both['library'] * 1e3:.1f} (cold, in turns, "
+              f"{_card.card_line()})")
+        lines[label] = {"ms": ms_both["kernel"], "plain_ms": ms_both["plain"],
+                        "bound_ms": bound_fwd + bound_bwd,
+                        "library_ms": ms_both["library"]}
+        del qkv, table, grad, lse, fwd, both
+        torch.cuda.empty_cache()
+    lines["max_abs_err"] = max_err
+    return lines
+
+
 # -- phase 11: the Swin through the worker ------------------------------------
 
 SWIN_WINDOWS = 2 * 64 + 2 * 16 + 18 * 4 + 2 * 1  # an image's, a swin_b forward
@@ -3367,6 +3526,7 @@ def swin_phase(torch, fl, out_dir):
     from openset_imagenet_tpu_torch.checkpoint import read_metadata
     from openset_imagenet_tpu_torch.inference import OpenSetPredictor
     from openset_imagenet_tpu_torch.models import swin
+    from openset_imagenet_tpu_torch.ops import window_attention as wak
 
     write_index(out_dir)
     write_val_index(out_dir)
@@ -3374,7 +3534,7 @@ def swin_phase(torch, fl, out_dir):
     arch = {"arch": "swin", "variant": "swin_b"}
     cfg = worker_cfg(out_dir, "swin", batch=BATCH, epochs=1, model=arch,
                      max_steps=4)
-    for counts in (fl.LAUNCHES, swin.COUNTS):
+    for counts in (fl.LAUNCHES, swin.COUNTS, wak.LAUNCHES):
         for k in counts:
             counts[k] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -3382,13 +3542,17 @@ def swin_phase(torch, fl, out_dir):
     info = engine.worker(cfg)
     seconds = time.perf_counter() - t0
     counts = dict(swin.COUNTS)
+    launches = dict(wak.LAUNCHES)
     print(f"swin worker: info {info}, {seconds:.2f} s (host clock, with "
           f"set-up), peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
-          f"at batch {BATCH}, counts {counts}, launches {dict(fl.LAUNCHES)}")
+          f"at batch {BATCH}, counts {counts}, launches {dict(fl.LAUNCHES)}"
+          f", window attention {launches}")
     check(info["stopped_mid_epoch"] == 4, f"swin: {info}")
     check(counts == {"attention_calls": 4 * 24,
                      "windows": 4 * BATCH * SWIN_WINDOWS},
           f"swin: attention counts {counts}")
+    check(launches == {"win_attn_fwd": 4 * 24, "win_attn_bwd": 4 * 24},
+          f"swin: window-attention launches {launches}")
     check(fl.LAUNCHES["entropic_fwd"] == 4 and fl.LAUNCHES["entropic_bwd"]
           == 4, f"swin: K1/K2 not on every step: {dict(fl.LAUNCHES)}")
     curr = cfg.output_directory / "entropic_curr.pth"
@@ -3408,13 +3572,17 @@ def swin_phase(torch, fl, out_dir):
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         model(x)[0].float().sum().backward()
         torch.cuda.synchronize()
-    names = sorted({e.name[:120] for e in prof.events()
-                    if any(f in e.name.lower() for f in (
-                        "fmha", "flash", "attention", "sdpa"))})
+    kernels = {e.name for e in prof.events()}
+    names = sorted({k[:120] for k in kernels if any(
+        f in k.lower() for f in ("fmha", "flash", "attention", "sdpa"))})
     print(f"swin attention kernels: {names}")
-    check(bool(names), "swin: no fused attention kernel ran")
+    check(names == ["osi_win_flash_bwd", "osi_win_flash_fwd"],
+          f"swin: attention kernels {names}")
+    check(not any("roll_cuda_kernel" in k for k in kernels),
+          "swin: torch.roll's kernel ran")
     del predictor, model
     torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -3436,6 +3604,7 @@ def main():
     from openset_imagenet_tpu_torch.ops import fused_loss as fl
     from openset_imagenet_tpu_torch.ops import int8_conv as ic
     from openset_imagenet_tpu_torch.ops import stream_probe as sp
+    from openset_imagenet_tpu_torch.ops import window_attention as wak
     from openset_imagenet_tpu_torch.tools import _card
     from openset_imagenet_tpu_torch.tools.bench_split_site import (
         function_bytes, function_flops)
@@ -3486,6 +3655,9 @@ def main():
     t0 = time.perf_counter()
     bn_total, bn_err = bn_checks(torch, bnk)
     print(f"phase batch-norm: ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    wa_lines = window_attention_checks(torch, wak)
+    print(f"phase window attention: ok ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     tool_launches = tool_runs()
     print(f"launches on the tools' path: {tool_launches}")
@@ -3602,7 +3774,7 @@ def main():
     print(f"phase optimize: ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    swin_phase(torch, fl, out_dir)
+    swin_launches = swin_phase(torch, fl, out_dir)
     print(f"phase swin: ok ({time.perf_counter() - t0:.1f} s)")
 
     # Bounds at the shapes the times were taken at.
@@ -3675,6 +3847,20 @@ def main():
             "max_abs_err": bn_err[name], "ms": t["kernel"],
             "plain_ms": t["plain"], "bound_ms": t["bound"],
             "bound_by": "bytes", "library_ms": t["library"]})
+    # The window attention, forward and backward, timed at Swin-B's
+    # stage-1 shape at batch 256, its error the largest of phase 2h's
+    # checks at the four stages; launches those of phase 11's worker.
+    wa = wa_lines["stage1"]
+    kernels.append({
+        "name": "window_attention", "route": "triton",
+        "source": "openset_imagenet_tpu_torch/ops/triton_window_attention.py",
+        "replaces": "none: F.scaled_dot_product_attention and the roll, "
+                    "partition, mask and merge copies of the Swin's "
+                    "written-out window attention",
+        "launches": sum(swin_launches.values()),
+        "max_abs_err": wa_lines["max_abs_err"], "ms": wa["ms"],
+        "plain_ms": wa["plain_ms"], "bound_ms": wa["bound_ms"],
+        "bound_by": "bytes", "library_ms": wa["library_ms"]})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))

@@ -11,8 +11,8 @@ features) and a ``logits`` layer without bias; ``forward`` returns
 * Stages of blocks at ``embed_dim * 2**i`` channels.  A block is
   ``x + attn(norm1(x))`` then ``x + mlp(norm2(x))``: multi-head attention
   inside non-overlapping windows of ``window_size**2`` tokens (W-MSA) in
-  even blocks, and after a cyclic shift by ``window_size // 2``
-  (``torch.roll``) in odd blocks (SW-MSA), where a region mask (-100,
+  even blocks, and after a cyclic shift of the map by ``window_size //
+  2`` in odd blocks (SW-MSA), where a region mask (-100,
   the official value) keeps tokens wrapped from opposite edges from
   attending to each other.  Where a stage's map is no larger than the
   window, the window is the map and nothing shifts (the official rule).
@@ -31,14 +31,20 @@ every kernel are cast to the compute dtype (bfloat16 by default) with
 explicit casts, not ``torch.autocast``; a dense bias is added after the
 product has been rounded.  LayerNorm takes its statistics in float32 and
 rounds its output to the compute dtype.  Attention runs through
-``F.scaled_dot_product_attention`` with the bias and the region mask as
-one additive mask in the compute dtype, padded in its last dimension to a
-multiple of 8 and sliced back, so that the memory-efficient kernel takes
-it without a copy; an unshifted block's mask is broadcast over the
-windows.  The relative-position index and the region mask depend on the
-map's size alone and are derived at the first forward at a size, one set
-a device, so a model built on ``meta`` and filled by ``load_state_dict``
-holds no uninitialised buffer.
+:func:`..ops.window_attention.window_attention`: the ``qkv`` Dense is
+applied to the block's tokens in the map's own order (a per-token product
+commutes with any permutation of the tokens), and the op reads each
+window's q, k and v at their places in the map, rolled and partitioned
+by index, adds the bias from the table and the region mask by index,
+and writes the output back at the same places, which ``proj`` reads.  On
+the card that is two hand-written kernels (one forward, one backward);
+on the CPU its plain version.  Scores, softmax and the bias are float32;
+q, k, v and the softmax weights are in the compute dtype.  No roll,
+partition, merge or mask exists in device memory.  The relative-position
+index and the region mask that :meth:`SwinBlock.geometry` keeps depend on
+the map's size alone and are derived at the first forward at a size, one
+set a device, so a model built on ``meta`` and filled by
+``load_state_dict`` holds no uninitialised buffer.
 
 ``state_dict`` names follow the official code (``patch_embed.proj.*``,
 ``patch_embed.norm.*``, ``layers.{i}.blocks.{j}.{norm1, attn.qkv,
@@ -47,8 +53,8 @@ attn.proj, attn.relative_position_bias_table, norm2, mlp.fc1, mlp.fc2}.*``,
 are ``fc.*`` and ``logits.*``.
 
 ``COUNTS`` counts the window-attention calls and the windows they took;
-each block's attention (roll, partition, mask, attention, merge, reverse
-roll) is the device span ``swin.attention`` (:mod:`..tracing`).
+each block's attention (the ``qkv`` product, the window attention, the
+``proj`` product) is the device span ``swin.attention`` (:mod:`..tracing`).
 """
 
 from __future__ import annotations
@@ -61,10 +67,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import tracing
+from ..ops.window_attention import MASKED, window_attention
 from .resnet import Conv, Dense, _trunc_normal
 
 LN_EPSILON = 1e-5
-MASKED = -100.0  # the official region mask's value
 COUNTS = {"attention_calls": 0, "windows": 0}
 
 
@@ -124,51 +130,29 @@ def region_mask(h: int, w: int, ws: int, shift: int) -> torch.Tensor:
     return torch.where(diff != 0, MASKED, 0.0)
 
 
-def _aligned(mask: torch.Tensor) -> torch.Tensor:
-    """``mask`` as a slice of a copy padded to a multiple of 8 in its
-    last dimension (what the memory-efficient attention kernel needs of a
-    mask's strides)."""
-    n = mask.shape[-1]
-    return F.pad(mask, (0, -n % 8))[..., :n]
-
-
 class WindowAttention(nn.Module):
     """Multi-head attention inside windows, with the relative-position
-    bias (``relative_position_bias_table``) and an optional region mask."""
+    bias (``relative_position_bias_table``) and, after a shift, the
+    region mask."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
                  device=None):
         super().__init__()
         self.window_size, self.num_heads = window_size, num_heads
-        self.scale = (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(torch.zeros(
             (2 * window_size - 1) ** 2, num_heads, device=device))
         self.qkv = Dense(dim, 3 * dim, device=device)
         self.proj = Dense(dim, dim, device=device)
 
-    def forward(self, x: torch.Tensor, index: torch.Tensor,
-                region: Optional[torch.Tensor]) -> torch.Tensor:
-        """``x``: ``[B * nW, N, C]`` windows; ``index``: the bias table's
-        row of every token pair (``[N * N]``); ``region``: ``[nW, N, N]``
-        float32 or None."""
-        bw, n, c = x.shape
-        heads = self.num_heads
+    def forward(self, x: torch.Tensor, ws: int, shift: int) -> torch.Tensor:
+        """``x``: ``[B, H, W, C]`` tokens in the map's order -> ``[B, H, W,
+        C]``: attention in the ``ws x ws`` windows of the map rolled by
+        ``-shift``, merged and rolled back."""
+        b, h, w, _ = x.shape
         COUNTS["attention_calls"] += 1
-        COUNTS["windows"] += bw
-        q, k, v = self.qkv(x).view(bw, n, 3, heads, c // heads).permute(
-            2, 0, 3, 1, 4).unbind(0)
-        bias = self.relative_position_bias_table[index].view(
-            n, n, heads).permute(2, 0, 1)
-        if region is None:
-            mask = _aligned(bias.to(x.dtype)).unsqueeze(0)
-        else:
-            nw = region.shape[0]
-            mask = (region[:, None] + bias[None]).to(x.dtype)
-            mask = F.pad(mask, (0, -n % 8)).expand(
-                bw // nw, -1, -1, -1, -1).reshape(bw, heads, n, -1)[..., :n]
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                             scale=self.scale)
-        return self.proj(out.transpose(1, 2).reshape(bw, n, c))
+        COUNTS["windows"] += b * (h // ws) * (w // ws)
+        return self.proj(window_attention(
+            self.qkv(x), self.relative_position_bias_table, ws, shift))
 
 
 class Mlp(nn.Module):
@@ -209,7 +193,7 @@ class SwinBlock(nn.Module):
 
     def _derive(self, h: int, w: int, device):
         # Ordinary tensors even under inference_mode (a first forward in
-        # OpenSetPredictor), so that later training can save them.
+        # OpenSetPredictor), so that later training may use them.
         with torch.inference_mode(False):
             ws = self.window_size
             shift = ws // 2 if self.shifted else 0
@@ -224,16 +208,11 @@ class SwinBlock(nn.Module):
                     None if region is None else region.to(device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, h, w, c = x.shape
-        ws, shift, index, region = self.geometry(h, w, x.device)
+        h, w = x.shape[1:3]
+        ws, shift, _, _ = self.geometry(h, w, x.device)
         y = self.norm1(x)
         with tracing.span("swin.attention", device=x.device):
-            if shift:
-                y = torch.roll(y, (-shift, -shift), (1, 2))
-            y = self.attn(window_partition(y, ws), index, region)
-            y = window_reverse(y, ws, h, w)
-            if shift:
-                y = torch.roll(y, (shift, shift), (1, 2))
+            y = self.attn(y, ws, shift)
         x = x + y
         return x + self.mlp(self.norm2(x))
 

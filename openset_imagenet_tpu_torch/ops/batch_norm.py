@@ -40,18 +40,16 @@ the shape alone; ``LAUNCHES`` counts launches by kernel.
 from __future__ import annotations
 
 import functools
-import os
-from typing import Dict, Iterator, NamedTuple, Optional, Tuple
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
-from ._build import BUILD_DIR
+from ._triton import DTYPES, SMS, run
+from ._triton import ticket as _ticket
 
 Tensor = torch.Tensor
 
 LAUNCHES = {"bn_stats": 0, "bn_apply": 0, "bn_bwd": 0, "bn_fix": 0}
-SMS = 132                 # streaming multiprocessors of an H100 SXM
-DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 LAYOUTS = ("channels_last", "contiguous")
 # Elements of a tile: 16 KB of a bfloat16 or float16 activation (8 KB in
 # float32) for the streaming passes, 4096 for the reductions (two float32
@@ -68,9 +66,6 @@ _REDUCE_PROGRAMS = 4 * SMS
 # apart, 32.
 _MAX_BLOCK_C = {"channels_last": 128, "contiguous": 32}
 _WARPS = 8
-# The stats and backward passes' ticket counters (one int32 per channel
-# tile), one array per (device index, stream); 0 between launches.
-_TICKETS: Dict[Tuple[int, int], Tensor] = {}
 
 
 class Launch(NamedTuple):
@@ -242,28 +237,8 @@ def bn_grad_plain(g: Tensor, x: Tensor, weight: Tensor, stats: Tensor,
 
 # -- kernel wrappers ----------------------------------------------------------
 
-_MODULE: list = []
-
-
-def _kernels():
-    if not _MODULE:
-        os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR))
-        from . import triton_batch_norm
-
-        _MODULE.append(triton_batch_norm)
-    return _MODULE[0]
-
-
-def _run(name: str, device: torch.device, grid: Tuple[int, int], *args,
-         **consts) -> None:
-    """Launch kernel ``name`` of :mod:`.triton_batch_norm` on the current
-    stream of ``device``."""
-    kernel = getattr(_kernels(), name)[grid]
-    if device.index == torch.cuda.current_device():
-        kernel(*args, **consts)
-    else:
-        with torch.cuda.device(device):
-            kernel(*args, **consts)
+# Launch a kernel of :mod:`.triton_batch_norm` on the current stream.
+_run = functools.partial(run, "triton_batch_norm")
 
 
 def _layout(x: Tensor) -> str:
@@ -317,25 +292,6 @@ def _use_kernel(x: Tensor, **vectors: Tensor) -> Optional[str]:
     for name, t in vectors.items():
         _check_vector(name, t, x.shape[1], x)
     return layout
-
-
-def _ticket(device: torch.device, n: int) -> Tensor:
-    """At least ``n`` int32 ticket counters of the current stream on
-    ``device``.  Made with ``torch.zeros``; every launch leaves the
-    counters it used at 0.  A stream being captured into a CUDA graph must
-    have run a training forward and backward at its widest channel count
-    before the capture, so that no allocation lands in the graph."""
-    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
-    counter = _TICKETS.get(key)
-    if counter is None or counter.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "a batch-norm in a CUDA-graph capture needs its ticket "
-                "counters made before the capture: run it once on the "
-                "capture stream first")
-        counter = _TICKETS[key] = torch.zeros(max(n, 64), dtype=torch.int32,
-                                              device=device)
-    return counter
 
 
 def _consts(launch: Launch, **constexprs) -> dict:

@@ -10,7 +10,10 @@ through the plain version), and the Triton batch-norm kernels
 (``ops/batch_norm.py``: the apply bit-equal to its plain version, the
 statistics and backward against theirs, the model's train step and eval
 forward against the written-out batch-norm, their launches and
-refusals).  Marked ``cuda``: skipped where there is no
+refusals), and the Swin's window-attention kernels
+(``ops/window_attention.py``: output, qkv and table gradients against
+the plain version at Swin-B's four stage shapes, launches, bit-equal
+backwards, peak memory, refusals).  Marked ``cuda``: skipped where there is no
 CUDA device (or, for the Triton kernels, no Triton).  On a
 GPU host run ``python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py`` (``--noconftest``: the suite's conftest imports
@@ -1592,8 +1595,8 @@ def test_bn_kernels_refuse_what_they_do_not_take(cuda):
 def test_swin_train_step_against_the_float32_reference(cuda):
     """A bf16 train step of a tiny Swin on the card (32 px, embedding 32,
     depths (2, 2), heads (2, 4), window 4: stage 1 shifted, stage 2 one
-    window; the masked attention through ``F.scaled_dot_product_attention``,
-    the loss through K1 and K2) against the benchmark's float32 reference
+    window; the attention through the window-attention kernels, the loss
+    through K1 and K2) against the benchmark's float32 reference
     on the card (TF32 off): the logits within 2 % of their norm (the CPU
     tests' bf16 rule, ``tests/test_torch_swin.py``), the loss within 1e-3,
     every leaf's gradient within 10 % of the larger of its norm and the
@@ -1636,3 +1639,146 @@ def test_swin_train_step_against_the_float32_reference(cuda):
     for name, g in grads.items():
         gap = float((named[name].grad - g).norm())
         assert gap < 0.1 * max(float(g.norm()), median), name
+
+
+# -- the window attention (ops/window_attention.py, Triton) ------------------
+# Kernel against plain on the card at Swin-B's four stage shapes (map side,
+# channels, heads; windows of 7, the table's window 7), batch 4.
+# Tolerances, relative in norm: float32 1e-5 (the same float32 function,
+# sums in another order and the card's exp; read 2.5e-7); bf16 output
+# 1e-3 (the one rounding of P and of the output can fall the other way
+# where the two float32 values differ in their last bits: one bf16 step,
+# 2**-8, for a few elements; read 6e-5); bf16 dqkv 1e-2 (the kernel
+# rounds dS to bf16 for the dq and dk products, 2**-9 an element, where
+# autograd of the plain version keeps float32; read 2.1e-3); the table's
+# gradient 1e-5 in both dtypes (float32 sums of the same float32 dS over
+# every window, in another order; read 3.1e-7).  Readings on an NVIDIA H100
+# 80GB HBM3.
+
+WA_STAGES = [(56, 128, 4), (28, 256, 8), (14, 512, 16), (7, 1024, 32)]
+WA_TOL = {torch.float32: (1e-5, 1e-5, 1e-5),
+          torch.bfloat16: (1e-3, 1e-2, 1e-5)}
+
+
+def _wa_case(device, b, side, c, heads, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, side, side, 3 * c, generator=gen)
+    table = torch.randn(169, heads, generator=gen)
+    grad = torch.randn(b, side, side, c, generator=gen)
+    return (qkv.to(device, dtype), table.to(device), grad.to(device, dtype))
+
+
+def _wa_grads(fn, qkv, table, grad, shift):
+    qkv = qkv.clone().requires_grad_()
+    table = table.clone().requires_grad_()
+    out = fn(qkv, table, 7, shift)
+    out.backward(grad)
+    return out.detach(), qkv.grad, table.grad
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("stage", range(4))
+def test_window_attention_kernel_matches_plain(cuda, stage, shift, dtype):
+    from openset_imagenet_tpu_torch.ops import window_attention as wak
+
+    side, c, heads = WA_STAGES[stage]
+    if shift and side == 7:
+        pytest.skip("stage 4's map is one window: never shifted")
+    qkv, table, grad = _wa_case(cuda, 4, side, c, heads, dtype, seed=stage)
+    before = dict(wak.LAUNCHES)
+    got = _wa_grads(wak.window_attention, qkv, table, grad, shift)
+    assert wak.LAUNCHES == {"win_attn_fwd": before["win_attn_fwd"] + 1,
+                            "win_attn_bwd": before["win_attn_bwd"] + 1}
+    want = _wa_grads(wak.window_attention_plain, qkv, table, grad, shift)
+    for name, a, b, tol in zip(("out", "dqkv", "dtable"), got, want,
+                               WA_TOL[dtype]):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _bn_rel(a, b) <= tol, (name, _bn_rel(a, b))
+
+
+def test_window_attention_backward_is_bit_equal_twice(cuda):
+    from openset_imagenet_tpu_torch.ops import window_attention as wak
+
+    qkv, table, grad = _wa_case(cuda, 8, 56, 128, 4, torch.bfloat16, 1)
+    first = _wa_grads(wak.window_attention, qkv, table, grad, 3)
+    again = _wa_grads(wak.window_attention, qkv, table, grad, 3)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_window_attention_holds_no_window_by_window_tensor(cuda):
+    """Peak memory over one stage-1 call at batch 64 (16 MB a [B, H, W, C]
+    bf16 tensor): the forward allocates its output and the log-sum-exp;
+    the backward the qkv gradient, the table's, and each program's
+    49 x 49 float32 scratch and table rows (264 programs: 2.8 MB).  Margin 4 MB: the allocator's rounding and the autograd
+    engine's small buffers (the backward read 1.0 MB over its own
+    tensors on an H100).  Scores or weights of every window ([4096, 4, 49, 49]) would
+    take 79 MB in bf16, 157 MB in float32."""
+    from openset_imagenet_tpu_torch.ops import window_attention as wak
+
+    qkv, table, grad = _wa_case(cuda, 64, 56, 128, 4, torch.bfloat16, 2)
+    qkv.requires_grad_()
+    table.requires_grad_()
+    windows, heads, n = 64 * 64, 4, 49
+    margin = 4 * 2 ** 20
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = wak.window_attention(qkv, table, 7, 3)
+    torch.cuda.synchronize()
+    lse = windows * heads * n * 4
+    assert torch.cuda.max_memory_allocated() - base <= (
+        out.numel() * 2 + lse + margin)
+    plan = wak._plan(windows, heads, n, 7)
+    scratch = plan.bwd_grid * heads * (n * n + plan.block_r) * 4
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert scratch < 3e6
+    assert torch.cuda.max_memory_allocated() - base <= (
+        qkv.numel() * 2 + table.numel() * 4 + scratch + margin)
+
+
+def test_window_attention_launches_once_a_block_each_way(cuda):
+    """A tiny_swin train step launches one forward and one backward a
+    block (four blocks); its forward under ``torch.inference_mode``, as
+    ``OpenSetPredictor`` runs it, one forward a block and the output of
+    the forward with a gradient."""
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.config import NameSpace
+    from openset_imagenet_tpu_torch.ops import window_attention as wak
+
+    model = engine.build_model(
+        NameSpace({"model": {"arch": "swin", "variant": "tiny_swin"}}), 6,
+        device=cuda).train()
+    x = torch.rand(8, 32, 32, 3, device=cuda)
+    before = dict(wak.LAUNCHES)
+    logits, _ = model(x)
+    logits.float().sum().backward()
+    assert wak.LAUNCHES == {"win_attn_fwd": before["win_attn_fwd"] + 4,
+                            "win_attn_bwd": before["win_attn_bwd"] + 4}
+    with torch.inference_mode():
+        again, _ = model(x)
+    assert wak.LAUNCHES["win_attn_fwd"] == before["win_attn_fwd"] + 8
+    assert wak.LAUNCHES["win_attn_bwd"] == before["win_attn_bwd"] + 4
+    assert torch.equal(again, logits.detach())
+
+
+def test_window_attention_refuses_what_it_does_not_take(cuda):
+    from openset_imagenet_tpu_torch.ops import window_attention as wak
+
+    qkv, table, _ = _wa_case(cuda, 2, 14, 128, 4, torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+        wak.window_attention(qkv.double(), table, 7, 3)
+    big = torch.zeros(1, 9, 9, 3 * 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 64 tokens"):
+        wak.window_attention(big, torch.zeros(289, 4, device=cuda), 9, 0)
+    with pytest.raises(ValueError, match="power of two"):
+        wak.window_attention(qkv[..., :3 * 96].contiguous(),
+                             table[:, :4], 7, 3)
+    with pytest.raises(ValueError, match="contiguous qkv"):
+        wak.window_attention(qkv.transpose(1, 2), table, 7, 3)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        wak.window_attention(qkv, table.double(), 7, 3)
