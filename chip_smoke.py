@@ -5,35 +5,38 @@
 
 Drives ``openset_imagenet_tpu_torch`` through the entry points a user
 calls, at full width (resnet50, 224 px, 116 known classes, random weights
-from a seed), and checks what comes out:
+from a seed), and checks what comes out and that each path launched its
+kernels.  Before that it holds each kernel once against its plain version
+at the main path's shapes; the card tests (``python -m pytest --noconftest
+-m cuda tests/test_torch_cuda.py``) hold them over the shapes whose launch
+plans differ, and both take their checks from ``tests/cuda_checks.py``.
+A kernel's time on the card comes from ``tools/ab_torch_kernels.py`` (K1-K6
+and ``int8_conv``, of two checkouts, in turns), the bench tools (K6, K7)
+and the cells' per-layer metrics (the loss, batch-norm and
+window-attention kernels).
 
-1. the card: name and power limit from ``nvidia-smi``;
-2. the Triton loss kernels against their plain PyTorch versions on the
-   card, at the train and validation steps' shapes and at ragged, masked,
-   all-negative and all-masked batches, with their times: the forwards
-   (``entropic_fwd``, ``ce_fwd``; rtol 1e-5 on the sums, counts exact) and
-   the backwards (``entropic_bwd``, ``ce_bwd``; gradients within rtol
-   1e-5, atol 1e-8, masked rows exactly 0, autograd through the public
-   losses equal to the plain backward); same bits on a second launch;
-   K1 (``entropic_fwd``) and K3 (``ce_fwd``) are one kernel launch per
-   call (profiler), bit-equal over 50 launches and over a CUDA-graph
-   replay of 20 calls at [64, C], [256, C], [1000, 1000] and [4099, 3];
-   K3 is timed beside ``F.cross_entropy`` and in its two other grids (one
-   program, or 2048-element tiles and a ticket); K1's mean has the bits
-   of ``sum / count.clamp(min=1)`` and K3's those of ``sum /
-   wsum.clamp(min=1e-12)``; K2 given ``(g, count)`` has the bits of K2
-   given torch's ``g / count.clamp(min=1)``, and K4 given ``(g, wsum)``
-   those of K4 given ``g / wsum.clamp(min=1e-12)``; K2 and K4 are timed
-   in both of their grids (two-row programs of one warp, 2048-element
-   tiles of four); the public entropic loss launches K1 and K2 and
-   nothing else for a forward and a backward, and K1 alone for an eval
-   forward; the softmax and garbage losses launch their row weights'
-   elementwise kernels, then K3 and K4 and nothing else (K3 alone in
-   eval), with the time of forward + backward and of K3 + K4 alone;
+1. the card: name and power limit from ``nvidia-smi``; then ``nvcc``
+   builds K5, K6 and ``int8_conv`` side by side (``ops/_build.py``), so
+   that the tools' processes and the later phases find them built;
+2. each kernel of the ``kernels`` line against its plain version, once at
+   the main path's shapes (``tests/cuda_checks.py``'s ``MAIN_PATH``, whose
+   checks and bounds the card tests share): K1 and K2 at [256, 116], K3
+   and K4 at [64, 117], K5 and K6 at resnet50's stage-1 tail at batch 256,
+   K7 at [8, 3136, 256], ``int8_conv`` at the stage-1 3x3 conv at batch
+   256, the batch-norm kernels at a [256, 256, 56, 56] map with a window of
+   64 images, the window attention at Swin-B's four stages at batch 256;
+   the phase's table must name each kernel of that line;
+2e. the two ported bench tools as the entry points they are, each in its
+   own process with few iterations (``python -m openset_imagenet_tpu_torch.
+   tools.bench_split_site --iters 2``, ``...bench_stream --iters 3``): their
+   JSON lines' cases, finite numbers, the card, K6's four kernels in the
+   split case's profile, and that their kernel cases launched K5, K6 and
+   K7 (each tool reports the launches of its cases; a fresh process
+   starts from zero counts);
 3. serving: a reference ``.pth`` -> ``OpenSetPredictor(device="cuda")``,
    ``warmup(64)``, requests of 1, 3, 17 and 64 images; shapes, finiteness,
    scores that do not depend on the padding bucket, rejection, agreement
-   with a float32 CPU forward on two images, and forward imgs/s;
+   with a float32 CPU forward on two images;
 4. validation: ``make_eval_step`` + ``validate`` over four batches of 64
    (the last one masked) for the entropic, softmax and garbage losses,
    through the kernels, against the same step with ``fused=False``;
@@ -51,8 +54,7 @@ from a seed), and checks what comes out:
    gradients differ by ~1e-10, but the bf16 backward rounds differently
    once its input differs by an ulp, and the flips add up towards the
    stem: the stem's batch-norm and conv gradients moved by up to 1.234e-2
-   on the H100.  Prints train-step imgs/s at batch 256 with the kernels
-   and with ``fused=False`` and the peak device memory;
+   on the H100;
 6. fused-block training: the same index through a ``drop_remainder=True``
    pipeline (two full batches of 256) -> ``train_epoch`` of a resnet50
    with ``model.fused_blocks`` and ``model.boundary_mask`` (ghost-64,
@@ -109,9 +111,8 @@ from a seed), and checks what comes out:
    card at 50,000 x 117 (bf16-rounded scores, so ties) against numpy
    ``calculate_oscr``: every numpy threshold's ccr and fpr within 1e-6
    of the device's at the same threshold, for all thresholds and for
-   1,000.  Prints each split's extraction rate (imgs/s, host clock) and
-   the OSCR device ms beside numpy's, each with the card's name and power
-   limit.  The phase launches no kernel of the port (a forward and a
+   1,000.  Prints the OSCR device ms beside numpy's, with the card's name
+   and power limit.  The phase launches no kernel of the port (a forward and a
    float32 softmax, as the JAX extraction step).  It keeps (a)'s
    ``_best`` and its val arrays for phase 9;
 9. prediction paths and the daemon, from phase 7's (a) entropic ``_best``
@@ -124,8 +125,7 @@ from a seed), and checks what comes out:
    archives' arrays byte-equal (the zip's timestamps differ), every row
    bit-equal to ``OpenSetPredictor.predict`` on the same pixels at the
    same chunks; ``--threshold-at-fpr 0.1``: a row is -1 exactly when its
-   measure is below the threshold; ``predict_stream`` and serial
-   ``predict()`` with pinned and pageable host staging, in turns.  Then
+   measure is below the threshold.  Then
    ``PredictionServer`` in-process (``max_batch`` 64, window 2 ms) whose
    ``decode`` takes raw 224x224x3 bodies (the GPU host has neither
    libjpeg nor PIL; the line says what ``native_available()`` gave):
@@ -169,94 +169,12 @@ from a seed), and checks what comes out:
 11. the Swin: ``worker(cfg)`` on ``model: {arch: swin, variant: swin_b}``
    (published widths) at batch 64 over phase 7's index, cut by
    ``max_steps: 4``: four train steps through the loss kernels, the
-   attention path's ``COUNTS`` (24 calls a forward, 234 windows an
-   image), the window-attention kernels' ``LAUNCHES`` (one forward and
-   one backward a block: 96 each), the attention kernels that ran in one
+   window-attention kernels' ``LAUNCHES`` (one forward and one backward
+   a block of 24: 96 each), the attention kernels that ran in one
    traced step (profiler names: ``osi_win_flash_fwd`` and
    ``osi_win_flash_bwd`` alone, and no roll kernel), the ``_curr``
    checkpoint's ``extra.arch``, and ``OpenSetPredictor`` rebuilding a
    Swin from it on the card (finite scores on 64 images).
-
-Phase 2b holds K5 (``ops/fused_block_bwd.py``, CUDA C++ built by ``nvcc``
-at first use) against its plain version at every distinct resnet50 site
-shape at batch 256 (tails: int8 mask, input activation, gp out; heads
-with and without the skip gradient; the fused route at M = 802,816, the
-tiled one below), at a ragged M and ragged channels, in bf16 (and f32 at
-stage 4 and the ragged shapes): gp exact, dW and the channel sums within
-1e-4 relative in norm, dx within rtol 2e-2, atol 1e-2 (bf16) or 1e-5
-(f32), the same bits on a second launch.  It prints each resnet50 site's
-route, device time, bytes and operations bound and share of that bound,
-and the plain version's time at the stage-1 tail and head and the
-stage-4 tail.  K5 and K6 are built by two ``nvcc`` processes at once,
-while phase 2 builds the Triton kernels and holds them against their
-plain versions; phase 2's launch counts (profiler) come after the builds.
-``int8_conv`` (``ops/int8_conv.py``, CUDA C++) is built by a third
-``nvcc`` beside them.
-
-Phase 2c holds K6, the split tail site (``experimental/split_site.py``,
-CUDA C++), against its plain version at every resnet50 tail-site shape
-(stages 1-4 at batch 256), a ragged M and ragged channel counts, in bf16
-(and f32 at stage 4 and the ragged shapes): the same bits on a second
-launch, gp exact, dW and the four channel sums within 1e-4 relative in
-norm (the input-side sums add dxa after its rounding to bf16; each
-side's distance to a float64 product is printed), dx within rtol 2e-2,
-atol 1e-2 (bf16) or 1e-5 (f32); against K5 on the same inputs, gp exact
-and the rest within 8e-2 (bf16) or 1e-5 (f32), dx elementwise and the
-others in norm.  Times at the stage-1 and stage-4 tails, K5's beside.
-Phase 2d holds K7, the Triton streaming probes (``ops/stream_probe.py``),
-bit for bit against their plain versions and against the library call
-that computes the same function (``torch.add(x, b)`` for axpy, whose
-bf16 multiply by 1.0009765625 is the identity; ``threshold_backward(g,
-m, 0)`` for relu_mask off the NaNs of a mask strewn with NaN, +-0, +-inf
-and subnormals, the kernel giving 0 on those NaNs as JAX does) at bf16
-[8, 3136, 256], a ragged row count, 4097 elements and a view at storage
-offset 1; it prints each kernel's launch configuration, and times kernel
-and library call in turns in the bench tool's cold harness (an operand
-pair and an output for each call of the graph, the L2 flushed first,
-so that no byte comes from the L2), and in the earlier four-pair harness
-beside it.  Phase 2e
-runs the two ported bench tools as the entry points they are, each in its own
-process with few iterations (``python -m openset_imagenet_tpu_torch.
-tools.bench_split_site --iters 2``, ``...bench_stream --iters 3``), and
-checks their JSON lines: the cases, finite numbers, the card, K6's four
-kernels in the split case's profile, and that their kernel cases
-launched K5, K6 and K7 (each tool reports the launches of its cases; a
-fresh process starts from zero counts).  Phase 2f holds ``int8_conv``
-bit for bit against its plain version (a float64 ``F.conv2d`` of the
-int8 values, then the epilogue as eager ops) at every resnet50 QuantConv
-shape at batch 4, at ragged shapes, at the grouped convs of
-resnext50_32x4d (the SIMT route) and on extreme operands (+-127
-everywhere, zero channels), in bf16 and float32 out; ``torch._int_mm``
-over an explicit im2col gives the plain version's int32 sums at every
-resnet50 shape; it prints what ``F.conv2d`` does with int8 CUDA tensors,
-and at batch 256 each resnet50 shape's device µs (CUDA-graph replays)
-beside its bound, ``torch._int_mm`` alone and with the im2col, and
-cuDNN's bf16 conv at the same shape, and the sums over one forward's 52
-convs.  Phase 2g holds the batch-norm kernels (``ops/batch_norm.py``,
-Triton) at each of the 53 resnet50 batch-norm shapes at batch 256 (bf16,
-channels-last, a statistics window of 64 images): the apply bit-equal to
-its plain version in the ghost form (given the plain statistics) and in
-the eval form (given running statistics), the statistics within rtol
-1e-5, the backward's dx bit-equal outside the window and within 1e-3 in
-norm inside it, dweight and dbias within 1e-5, every launch twice with
-the same bits; then, cold (the L2 flushed before each call) and in turns,
-each kernel beside its bytes bound, its plain version and the library
-call computing the same function (``torch.batch_norm_stats`` of the
-window, ``torch.batch_norm_elemt`` for the ghost apply,
-``torch.batch_norm`` in eval for the eval apply,
-``native_batch_norm_backward`` for the backward, ``torch.batch_norm`` in
-training beside statistics + apply), per shape and summed over a step.
-Phase 2h holds the Swin's window-attention kernels
-(``ops/window_attention.py``, Triton) at Swin-B's four stage shapes at
-batch 256 (bf16, windows of 7; unshifted and shifted by 3 at stages 1-3,
-unshifted at stage 4, whose map is one window): the output, the qkv
-gradient and the bias table's gradient against the plain version
-(relative in norm: 1e-3, 1e-2, 1e-5; the card tests give the reasons),
-the same bits on a second run; then, at stages 1 and 3 shifted by 3,
-cold and in turns, the forward and the forward + backward of the
-kernels, of the plain version and of the path they replace (roll, partition, mask, ``F.scaled_dot_product_attention``,
-merge, reverse roll: the ``library_ms`` yardstick, which the port never
-calls), and the backward alone, each beside its bytes bound.
 
 The launch counts are zeroed just before phase 3 and read after phase 4
 (the serving path: the batch-norm's apply kernel and not its
@@ -269,28 +187,14 @@ zeroed and read too, and printed: their paths run none of them.
 Float32 matmuls and convolutions run without TF32 (both backend flags
 off), so float32 comparisons on the card are exact float32.
 
-The second-to-last line is ``{"kernels": [...]}``: for each of the eight
-ported kernels, the window attention (forward + backward at Swin-B's
-stage-1 shape, batch 256; ``replaces`` none, its launches phase 11's,
-its ``library_ms`` the SDPA path of phase 2h), ``int8_conv`` (which replaces no TPU kernel: its
-``replaces`` names the XLA convolution of the JAX ``QuantConv``, and its
-numbers are the stage-1 3x3 conv at batch 256) and the three batch-norm
-kernels ``bn_stats``, ``bn_apply`` (its eval form) and ``bn_backward``
-(with its window fix-up; none replaces a TPU kernel, and their numbers
-are sums over the 53 batch-norms of a resnet50 step at batch 256, their
-launches those of phases 3-5) its launches on its
-path, max |err| against the plain
-version, device ms of the kernel and of the plain version, the least time
-the card could take at the same shape (``bound_ms``, set by ``bytes`` or
-``operations``: NVIDIA's H100 peaks, ``openset_imagenet_tpu_torch/tools/
-_card.py``) and the time of one PyTorch call computing the same function
-where there is one (``library_ms``: ``F.cross_entropy`` against the
-target matrix for K1 at unk_weight 1 (checked within rtol 1e-5 of K1's
-mean; printed at [256, 116] and [64, 116]), ``F.cross_entropy`` with
-class weights for K3, ``torch.add(x, b)`` for K7's axpy (checked bit
-for bit), ``torch.ops.aten.threshold_backward`` for K7's relu-mask
-(checked bit for bit off NaN masks), and for ``int8_conv`` the explicit
-im2col plus ``torch._int_mm`` (checked on the int32 sums); else null). The last line is
+The second-to-last line is ``{"kernels": [...]}``: for each of the
+thirteen kernels, its ``name``, ``route`` (``triton`` or ``cuda``),
+``source``, what it ``replaces`` (the TPU kernel's file and line in the
+JAX package, or what the port ran before it where there is none) and its
+``launches`` on its path (the loss kernels over phases 3-7, K5 over
+phases 6-7, K6 and K7 in phase 2e's tool processes, ``int8_conv`` in
+phase 10, the batch-norm kernels over phases 3-5, the window attention in
+phase 11); every kernel must have launched.  The last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and no result line is printed. Without a CUDA device
 the script exits non-zero at once. Build outputs (Triton's cache, the K5,
@@ -326,833 +230,26 @@ def time_ms(fn, reps=30, warmup=5):
     return _card.event_ms(fn, reps=reps, warmup=warmup)
 
 
-def graph_ms(fn, calls=20, reps=20):
-    """Median device milliseconds of one call, replayed from a CUDA graph
-    of ``calls`` calls (no host launch overhead in the interval), captured
-    on a warmed stream: K1's and K3's ticket counters exist."""
-    from openset_imagenet_tpu_torch.tools import _card
+# -- phase 2: each kernel against its plain version --------------------------
 
-    return _card.graph_ms(fn, calls=calls, reps=reps)
+def kernel_table(torch):
+    """One check of each kernel at the main path's shapes; the kernels
+    checked."""
+    sys.path.insert(0, str(REPO / "tests"))   # as pytest finds it
+    import cuda_checks
 
-
-# -- phase 2: kernels against their plain versions ---------------------------
-
-def kernel_checks(torch, fl):
-    import torch.nn.functional as F
-
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED)
-
-    def batch(b, c, low=-1, valid=None, masked=False):
-        logits = torch.from_numpy((rng.normal(size=(b, c)) * 3).astype(
-            np.float32)).to(dev)
-        labels = torch.from_numpy(rng.integers(low, c, b).astype(
-            np.int32)).to(dev)
-        mask = np.ones(b, np.float32)
-        if valid is not None:
-            mask[valid:] = 0
-        if masked:
-            mask[:] = 0
-        return logits, labels, torch.from_numpy(mask).to(dev)
-
-    cases = [  # name, b, c, label low, valid rows, all masked, all negative
-        ("p1", 64, 116, -1, None, False, False),
-        ("p1", 256, 116, -1, None, False, False),
-        ("garbage", 64, 117, 0, None, False, False),
-        ("garbage", 256, 117, 0, None, False, False),
-        ("ragged", 1000, 1000, -1, None, False, False),
-        ("tail", 64, 116, -1, 37, False, False),
-        ("negatives", 64, 116, -1, None, False, True),
-        ("masked", 64, 116, -1, None, True, False),
-    ]
-    max_err = {"entropic_fwd": 0.0, "ce_fwd": 0.0}
-    rows = []
-    library = {}
-    for name, b, c, low, valid, masked, negative in cases:
-        logits, labels, mask = batch(b, c, low, valid, masked)
-        if negative:
-            labels = -torch.ones_like(labels)
-        class_w = torch.from_numpy(rng.uniform(0.2, 2.0, c).astype(
-            np.float32)).to(dev)
-        ce_rows = (class_w[labels.long().clamp(0, c - 1)] * mask
-                   if name == "garbage" else (labels >= 0).float() * mask)
-        if (name, b, c) == ("garbage", 64, 117):
-            # One library call computes K3's sum on an unmasked batch.
-            labels64 = labels.long()
-            library["ce_fwd"] = graph_ms(lambda: F.cross_entropy(
-                logits, labels64, weight=class_w, reduction="sum"))
-        if name == "p1":
-            # One library call computes K1's mean on an unmasked batch at
-            # unk_weight 1: the cross-entropy against the target matrix
-            # (one-hot for a known row, 1/C for a negative), formed once.
-            targets = torch.where(
-                labels[:, None] >= 0,
-                F.one_hot(labels.long().clamp(min=0), c).float(),
-                torch.full((b, c), 1.0 / c, device=dev))
-            ce = F.cross_entropy(logits, targets)
-            k1 = fl.entropic_fwd(logits, labels, mask, 1.0)[2]
-            check(torch.allclose(ce, k1, rtol=1e-5, atol=0),
-                  f"K1 [{b},{c}] at unk_weight 1: mean {float(k1)} vs "
-                  f"F.cross_entropy {float(ce)}")
-            library[("entropic_fwd", b)] = graph_ms(
-                lambda: F.cross_entropy(logits, targets))
-        runs = {
-            "entropic_fwd": (
-                lambda: fl.entropic_fwd(logits, labels, mask, 0.5),
-                lambda: fl.entropic_fwd_plain(logits, labels, mask, 0.5)),
-            "ce_fwd": (lambda: fl.ce_fwd(logits, labels, ce_rows),
-                       lambda: fl.ce_fwd_plain(logits, labels, ce_rows)),
-        }
-        for kname, (kernel, plain) in runs.items():
-            got = torch.stack(kernel())
-            again = torch.stack(kernel())
-            torch.cuda.synchronize()
-            ref = torch.stack(plain())
-            check(torch.equal(got, again), f"{kname} {name} [{b},{c}]: "
-                  "two launches differ")
-            g, r = got.double().cpu().numpy(), ref.double().cpu().numpy()
-            err = float(np.abs(g - r).max())
-            check(abs(g[0] - r[0]) <= 1e-5 * abs(r[0]) + 1e-6,
-                  f"{kname} {name} [{b},{c}]: sum {g[0]} vs plain {r[0]}")
-            floor = 1.0 if kname == "entropic_fwd" else 1e-12
-            check(torch.equal(got[2], got[0] / got[1].clamp(min=floor)),
-                  f"{kname} {name} [{b},{c}]: the mean is not sum / "
-                  f"clamp(min={floor}) bit for bit")
-            check(abs(g[2] - r[2]) <= 1e-5 * abs(r[2]) + 1e-6,
-                  f"{kname} {name} [{b},{c}]: mean {g[2]} vs plain {r[2]}")
-            if kname == "entropic_fwd" or name != "garbage":
-                check(g[1] == r[1], f"{kname} {name}: count {g[1]} vs {r[1]}")
-            else:
-                check(abs(g[1] - r[1]) <= 1e-6 * abs(r[1]),
-                      f"{kname} {name}: weight sum {g[1]} vs {r[1]}")
-            max_err[kname] = max(max_err[kname], err)
-            rows.append((kname, name, b, c, err, time_ms(kernel),
-                         time_ms(plain), graph_ms(kernel), graph_ms(plain)))
-    print("kernel      case       shape        max_abs_err   call_ms  "
-          "plain_call_ms  dev_ms   plain_dev_ms")
-    for kname, name, b, c, err, ms, pms, dms, pdms in rows:
-        print(f"{kname:11s} {name:10s} [{b},{c}]".ljust(36) +
-              f"{err:.3e}   {ms:.5f}  {pms:.5f}        {dms:.5f}  {pdms:.5f}")
-    main_shape = {"entropic_fwd": ("p1", 256, 116),
-                  "ce_fwd": ("garbage", 64, 117)}
-    timing = {}
-    for kname, name, b, c, err, ms, pms, dms, pdms in rows:
-        if main_shape[kname] == (name, b, c):
-            timing[kname] = (dms, pdms)
-        if kname == "entropic_fwd" and name == "p1":
-            print(f"K1 entropic_fwd [{b},{c}]: dev_ms {dms:.5f}, library "
-                  f"F.cross_entropy(logits, targets) "
-                  f"{library[('entropic_fwd', b)]:.5f}")
-    library["entropic_fwd"] = library[("entropic_fwd", 256)]
-    return max_err, timing, library
-
-
-def kernels_of(torch, fn, calls):
-    """Names of the kernels ``calls`` calls of ``fn`` launch, from
-    ``torch.profiler``.  A window can miss its first launch, so each opens
-    with a marker kernel (``torch.cuda._sleep``, left out of the names);
-    and a window can come back empty, so the fullest of three counts, or
-    of up to six while all are empty (three in a row were, once, on the
-    H100); a window never holds a kernel that did not run."""
-    from torch.profiler import ProfilerActivity, profile
-
-    names = []
-    for window_no in range(6):
-        if window_no >= 3 and names:
-            break
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        window = [e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and "spin_kernel" not in e.name]
-        names = max(names, window, key=len)
-    return names
-
-
-def one_launch_checks(torch, fl):
-    """K1 and K3 as one launch: one kernel per call (profiler), the same
-    bits over 50 launches and over a CUDA-graph replay of 20 calls, at
-    [64, C], [256, C], [1000, 1000] and [4099, 3] (many programs); at the
-    main path's shapes their device times, K3's beside ``F.cross_entropy``
-    and beside its two other grids.  Then the public entropic loss: K1 and
-    K2 alone for a forward and a backward, K1 alone for an eval forward."""
-    import torch.nn.functional as F
-
-    rng = np.random.default_rng(SEED + 6)
-    for kname, c_main in (("entropic_fwd", 116), ("ce_fwd", 117)):
-        for b, c in ((64, c_main), (256, c_main), (1000, 1000), (4099, 3)):
-            logits = torch.from_numpy((rng.normal(size=(b, c)) * 3).astype(
-                np.float32)).cuda()
-            labels = torch.from_numpy(rng.integers(
-                -1 if kname == "entropic_fwd" else 0, c, b).astype(np.int32)
-                ).cuda()
-            class_w = torch.from_numpy(rng.uniform(0.2, 2.0, c).astype(
-                np.float32)).cuda()
-            rows = (torch.ones(b, device="cuda") if kname == "entropic_fwd"
-                    else class_w[labels.long()])
-            if kname == "entropic_fwd":
-                fn = lambda: fl.entropic_fwd(logits, labels, rows, 0.5)
-            else:
-                fn = lambda: fl.ce_sums(logits, labels, rows)
-            call = lambda: torch.stack(fn())
-            first = call()
-            where = f"{kname} [{b},{c}]"
-            check(all(torch.equal(call(), first) for _ in range(50)),
-                  f"{where}: 50 launches differ")
-            names = kernels_of(torch, fn, calls=10)
-            check(len(names) == 10 and all(f"{kname}_once" in n
-                                           for n in names),
-                  f"{where}: 10 calls launched {names}")
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                call()
-            graph, outs = torch.cuda.CUDAGraph(), []
-            with torch.cuda.graph(graph, stream=side):
-                for _ in range(20):
-                    outs.append(call())
-            graph.replay()
-            torch.cuda.synchronize()
-            check(all(torch.equal(o, first) for o in outs),
-                  f"{where}: a graph replay differs from the eager call")
-            grid = fl._grid(b, c, fl._TILE_ELEMS[kname])[3]
-            line = (f"{where}: one launch per call ({names[0]}), {grid} "
-                    "programs, bit-equal over 50 launches and a 20-call "
-                    "replay")
-            if c == c_main:
-                line += f"; dev_us {graph_ms(fn) * 1e3:.3f}"
-            if c == 117:
-                labels64 = labels.long()
-                library_ms = graph_ms(lambda: F.cross_entropy(
-                    logits, labels64, weight=class_w, reduction="sum"))
-                line += f", F.cross_entropy {library_ms * 1e3:.3f}"
-                # The other grids the kernel takes: programs of
-                # 2048-element tiles and a ticket, and one program holding
-                # every row.
-                keep = fl._TILE_ELEMS["ce_fwd"]
-                for label, elems in (("2048-element tiles", 2048),
-                                     ("one program", None)):
-                    fl._TILE_ELEMS["ce_fwd"] = elems
-                    try:
-                        ms = graph_ms(fn)
-                        check(torch.allclose(call(), first, rtol=1e-5),
-                              f"{where}: {label}")
-                    finally:
-                        fl._TILE_ELEMS["ce_fwd"] = keep
-                    line += f", {label} {ms * 1e3:.3f}"
-            print(line)
-    check(all(int(t.item()) == 0 for t in fl._TICKETS.values()),
-          "a ticket counter was left above 0")
-
-    # The entropic loss at the train step's shape: two kernels each way.
-    lg = torch.from_numpy((rng.normal(size=(256, 116)) * 3).astype(
-        np.float32)).cuda().requires_grad_()
-    labels = torch.from_numpy(rng.integers(-1, 116, 256).astype(np.int32)
-                              ).cuda()
-    mask = torch.from_numpy((rng.random(256) > 0.2).astype(np.float32)
-                            ).cuda()
-    cotangent = torch.tensor(0.37, device="cuda")
-
-    def train():
-        mean, _ = fl.entropic_openset_loss_fused(lg, labels, mask, 0.5)
-        torch.autograd.grad(mean, lg, cotangent)
-
-    def evaluate():
-        with torch.inference_mode():
-            fl.entropic_openset_loss_fused(lg, labels, mask, 0.5)
-
-    names = kernels_of(torch, train, calls=1)
-    check(len(names) == 2 and "entropic_fwd_once" in names[0] and
-          "entropic_bwd" in names[1],
-          f"entropic loss forward + backward launched {names}")
-    eval_names = kernels_of(torch, evaluate, calls=1)
-    check(len(eval_names) == 1 and "entropic_fwd_once" in eval_names[0],
-          f"entropic loss eval forward launched {eval_names}")
-    print(f"entropic loss [256,116]: forward + backward launch "
-          f"{len(names)} kernels ({', '.join(n[:24] for n in names)}); "
-          f"eval forward {len(eval_names)}")
-
-    # The softmax and garbage losses at their train steps' shape: K3 and
-    # K4 each way, after the row weights' own elementwise kernels (formed
-    # before the loss, as the JAX package forms them).
-    for loss, c in (("softmax", 116), ("garbage", 117)):
-        lg = torch.from_numpy((rng.normal(size=(64, c)) * 3).astype(
-            np.float32)).cuda().requires_grad_()
-        labels = torch.from_numpy(rng.integers(
-            -1 if loss == "softmax" else 0, c, 64).astype(np.int32)).cuda()
-        mask = torch.from_numpy((rng.random(64) > 0.2).astype(np.float32)
-                                ).cuda()
-        class_w = torch.from_numpy(rng.uniform(0.2, 2.0, c).astype(
-            np.float32)).cuda()
-        fn = ((lambda: fl.softmax_loss_fused(lg, labels, mask))
-              if loss == "softmax" else
-              (lambda: fl.garbage_loss_fused(lg, labels, class_w, mask)))
-
-        def train():
-            mean, _ = fn()
-            torch.autograd.grad(mean, lg, cotangent)
-
-        def evaluate():
-            with torch.inference_mode():
-                fn()
-
-        names = kernels_of(torch, train, calls=1)
-        eval_names = kernels_of(torch, evaluate, calls=1)
-        ce = [n for n in names if "ce_fwd_once" in n or "ce_bwd" in n]
-        check(len(ce) == 2 and "ce_fwd_once" in ce[0] and "ce_bwd" in ce[1]
-              and names[names.index(ce[0]) + 1:] == ce[1:],
-              f"{loss} loss forward + backward launched {names}")
-        check("ce_fwd_once" in eval_names[-1] and
-              sum("ce_" in n for n in eval_names) == 1 and
-              len(names) - 2 == len(eval_names) - 1,
-              f"{loss} loss eval forward launched {eval_names}")
-        # The loss's own two kernels, on row weights formed once.
-        rows = ((labels >= 0).float() * mask if loss == "softmax" else
-                class_w[labels.long()] * mask)
-
-        def loss_kernels():
-            _, wsum, _ = fl.ce_fwd(lg.detach(), labels, rows)
-            fl.ce_grad(lg.detach(), labels, rows, cotangent, wsum)
-
-        print(f"{loss} loss [64,{c}]: forward + backward launch K3 and K4 "
-              f"alone after {len(names) - 2} row-weight kernels "
-              f"({', '.join(n[:20] for n in names[:-2])}); eval forward "
-              f"{len(eval_names)}; dev_us forward + backward "
-              f"{graph_ms(train) * 1e3:.3f}, K3 + K4 alone "
-              f"{graph_ms(loss_kernels) * 1e3:.3f}")
-
-
-def grad_kernel_checks(torch, fl):
-    """K2 and K4 against their plain versions, K2 given ``(g, count)`` and
-    K4 given ``(g, wsum)`` bit-equal to each given torch's scale, and the
-    two grids of K2 and of K4 timed side by side; returns (max_err,
-    timing)."""
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED + 7)
-    cases = [  # name, b, c, label low, valid rows, all masked, all negative
-        ("train", 256, 116, -1, None, False, False),
-        ("softmax", 64, 116, -1, None, False, False),
-        ("garbage", 64, 117, 0, None, False, False),
-        ("garbage", 256, 117, 0, None, False, False),
-        ("ragged", 1000, 1000, -1, None, False, False),
-        ("tail", 64, 116, -1, 37, False, False),
-        ("negatives", 64, 116, -1, None, False, True),
-        ("masked", 64, 116, -1, None, True, False),
-    ]
-    max_err = {"entropic_bwd": 0.0, "ce_bwd": 0.0}
-    rows = []
-    for name, b, c, low, valid, masked, negative in cases:
-        logits = torch.from_numpy((rng.normal(size=(b, c)) * 3).astype(
-            np.float32)).to(dev)
-        labels = torch.from_numpy(rng.integers(low, c, b).astype(
-            np.int32)).to(dev)
-        if negative:
-            labels = -torch.ones_like(labels)
-        mask = np.ones(b, np.float32)
-        if valid is not None:
-            mask[valid:] = 0
-        if masked:
-            mask[:] = 0
-        mask = torch.from_numpy(mask).to(dev)
-        class_w = torch.from_numpy(rng.uniform(0.2, 2.0, c).astype(
-            np.float32)).to(dev)
-        ce_rows = (class_w[labels.long().clamp(0, c - 1)] * mask
-                   if name == "garbage" else (labels >= 0).float() * mask)
-        # K2 as the backward calls it: the cotangent and the count.
-        g = torch.tensor(0.37, dtype=torch.float32, device=dev)
-        count = mask.sum()
-        given = fl.entropic_grad(logits, labels, mask,
-                                 g / count.clamp(min=1.0),
-                                 torch.ones((), device=dev), 0.5)
-        check(torch.equal(fl.entropic_grad(logits, labels, mask, g, count,
-                                           0.5), given),
-              f"K2 {name} [{b},{c}]: the in-kernel scale differs from "
-              "torch's g / count.clamp(min=1)")
-        # K4 likewise, from the cotangent and the weight sum.
-        wsum = ce_rows.sum()
-        one = torch.ones((), device=dev)
-        check(torch.equal(fl.ce_grad(logits, labels, ce_rows, g, wsum),
-                          fl.ce_grad(logits, labels, ce_rows,
-                                     g / wsum.clamp(min=1e-12), one)),
-              f"K4 {name} [{b},{c}]: the in-kernel scale differs from "
-              "torch's g / wsum.clamp(min=1e-12)")
-        runs = {
-            "entropic_bwd": (
-                lambda: fl.entropic_grad(logits, labels, mask, g, count,
-                                         0.5),
-                lambda: fl.entropic_grad_plain(logits, labels, mask, g,
-                                               count, 0.5), mask),
-            "ce_bwd": (
-                lambda: fl.ce_grad(logits, labels, ce_rows, g, wsum),
-                lambda: fl.ce_grad_plain(logits, labels, ce_rows, g, wsum),
-                ce_rows),
-        }
-        for kname, (kernel, plain, rows_w) in runs.items():
-            got, again = kernel(), kernel()
-            torch.cuda.synchronize()
-            ref = plain()
-            where = f"{kname} {name} [{b},{c}]"
-            check(got.dtype == logits.dtype and got.shape == logits.shape,
-                  f"{where}: gradient {got.dtype} {tuple(got.shape)}")
-            check(torch.equal(got, again), f"{where}: two launches differ")
-            check(torch.allclose(got, ref, rtol=1e-5, atol=1e-8),
-                  f"{where}: gradient differs from the plain version")
-            check(bool((got[rows_w == 0] == 0).all()),
-                  f"{where}: masked rows not exactly 0")
-            err = float((got - ref).abs().max())
-            max_err[kname] = max(max_err[kname], err)
-            rows.append((kname, name, b, c, err, time_ms(kernel),
-                         time_ms(plain), graph_ms(kernel), graph_ms(plain)))
-    # autograd through the public losses: the kernels' backward equals the
-    # plain backward at the train and validation shapes.
-    for name, b, c, low in (("entropic", 256, 116, -1),
-                            ("softmax", 64, 116, -1),
-                            ("garbage", 64, 117, 0)):
-        lg = torch.from_numpy((rng.normal(size=(b, c)) * 3).astype(
-            np.float32)).to(dev).requires_grad_()
-        labels = torch.from_numpy(rng.integers(low, c, b).astype(
-            np.int32)).to(dev)
-        mask = torch.from_numpy((rng.random(b) > 0.2).astype(
-            np.float32)).to(dev)
-        class_w = torch.from_numpy(rng.uniform(0.2, 2.0, c).astype(
-            np.float32)).to(dev)
-        if name == "entropic":
-            mean, count = fl.entropic_openset_loss_fused(lg, labels, mask,
-                                                         0.5)
-            ref = fl.entropic_grad_plain(lg.detach(), labels, mask,
-                                         torch.ones((), device=dev), count,
-                                         0.5)
-        else:
-            fn = (fl.softmax_loss_fused if name == "softmax" else
-                  lambda *a: fl.garbage_loss_fused(a[0], a[1], class_w,
-                                                   a[2]))
-            mean, wsum = fn(lg, labels, mask)
-            r = ((labels >= 0).float() * mask if name == "softmax" else
-                 class_w[labels.long().clamp(0, c - 1)] * mask)
-            ref = fl.ce_grad_plain(lg.detach(), labels, r,
-                                   torch.ones((), device=dev), wsum)
-        (got,) = torch.autograd.grad(mean, lg)
-        check(torch.allclose(got, ref, rtol=1e-5, atol=1e-8),
-              f"autograd through {name} loss differs from the plain backward")
-    # The two grids of K2 and of K4: two-row programs of one warp, and
-    # 2048-element tiles (16 rows at C = 116 or 117) of four warps.
-    for kname, b, c in (("entropic_bwd", 256, 116), ("entropic_bwd", 64, 116),
-                        ("ce_bwd", 64, 117), ("ce_bwd", 256, 117)):
-        logits = torch.from_numpy((rng.normal(size=(b, c)) * 3).astype(
-            np.float32)).to(dev)
-        labels = torch.from_numpy(rng.integers(
-            -1 if kname == "entropic_bwd" else 0, c, b).astype(np.int32)
-            ).to(dev)
-        mask = torch.ones(b, device=dev)
-        g, count = torch.tensor(0.37, device=dev), mask.sum()
-        if kname == "entropic_bwd":
-            fn = lambda: fl.entropic_grad(logits, labels, mask, g, count,
-                                          0.5)
-        else:
-            fn = lambda: fl.ce_grad(logits, labels, mask, g, count)
-        keep = fl._TILE_ELEMS[kname]
-        ref, times = fn(), {}
-        for elems in (256, 2048):
-            fl._TILE_ELEMS[kname] = elems
-            try:
-                times[elems] = graph_ms(fn)
-                check(torch.allclose(fn(), ref, rtol=1e-5, atol=1e-8),
-                      f"{kname} [{b},{c}], {elems}-element tiles")
-            finally:
-                fl._TILE_ELEMS[kname] = keep
-        print(f"{kname} [{b},{c}] dev_us: two-row programs of one warp "
-              f"{times[256] * 1e3:.3f}, 2048-element tiles of four warps "
-              f"{times[2048] * 1e3:.3f} (the port takes {keep}-element "
-              "tiles)")
-    print("kernel      case       shape        max_abs_err   call_ms  "
-          "plain_call_ms  dev_ms   plain_dev_ms")
-    for kname, name, b, c, err, ms, pms, dms, pdms in rows:
-        print(f"{kname:11s} {name:10s} [{b},{c}]".ljust(36) +
-              f"{err:.3e}   {ms:.5f}  {pms:.5f}        {dms:.5f}  {pdms:.5f}")
-    main_shape = {"entropic_bwd": ("train", 256, 116),
-                  "ce_bwd": ("garbage", 64, 117)}
-    timing = {}
-    for kname, name, b, c, err, ms, pms, dms, pdms in rows:
-        if main_shape[kname] == (name, b, c):
-            timing[kname] = (dms, pdms)
-    return max_err, timing
-
-
-# -- phase 2b: K5 against its plain version -----------------------------------
-
-K5_FORMS = {"tail": (True, True, False, True),      # in_act, mask, ds, gp
-            "head_ds": (False, False, True, False),
-            "head": (False, False, False, False)}
-# name, M, ci, co, form, dtypes: every distinct resnet50 site shape at 224
-# px, batch 256 (the stride sits on the 3x3 conv, so a block-1 head site
-# runs at the input resolution), then a ragged M and ragged channels.
-K5_CASES = [
-    ("stage1 tail", 802816, 64, 256, "tail", ("bf16",)),
-    ("stage1 head b1", 802816, 64, 64, "head", ("bf16",)),
-    ("stage1 head", 802816, 256, 64, "head_ds", ("bf16",)),
-    ("stage2 head b1", 802816, 256, 128, "head", ("bf16",)),
-    ("stage2 tail", 200704, 128, 512, "tail", ("bf16",)),
-    ("stage2 head", 200704, 512, 128, "head_ds", ("bf16",)),
-    ("stage3 head b1", 200704, 512, 256, "head", ("bf16",)),
-    ("stage3 tail", 50176, 256, 1024, "tail", ("bf16",)),
-    ("stage3 head", 50176, 1024, 256, "head_ds", ("bf16",)),
-    ("stage4 head b1", 50176, 1024, 512, "head", ("bf16", "f32")),
-    ("stage4 tail", 12544, 512, 2048, "tail", ("bf16", "f32")),
-    ("stage4 head", 12544, 2048, 512, "head_ds", ("bf16", "f32")),
-    ("ragged tail", 12544 + 77, 512, 2048, "tail", ("bf16", "f32")),
-    ("ragged s1 tail", 4096 + 3, 64, 256, "tail", ("bf16", "f32")),
-    ("ragged head", 1000 + 3, 72, 40, "head_ds", ("bf16", "f32")),
-]
-K5_SITES = 12             # the first twelve cases: the resnet50 sites
-K5_PLAIN_TIMED = ("stage1 tail", "stage1 head", "stage4 tail")
-
-
-def k5_inputs(torch, m, ci, co, form, dtype, seed):
-    in_act, has_mask, has_ds, emit_gp = K5_FORMS[form]
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-
-    def draw(*shape, dt=dtype, scale=1.0):
-        return (torch.randn(*shape, generator=gen, device="cuda")
-                * scale).to(dt)
-
-    mask = (torch.randint(0, 2, (m, co), generator=gen, device="cuda")
-            .to(torch.int8) if has_mask else None)
-    args = [draw(m, co), draw(m, co), mask, draw(m, ci),
-            draw(m, ci) if has_ds else None, draw(ci, co, scale=0.05),
-            draw(co, dt=torch.float32), draw(co, dt=torch.float32),
-            draw(ci, dt=torch.float32) if in_act else None,
-            draw(ci, dt=torch.float32) if in_act else None]
-    return args, dict(in_act=in_act, emit_gp=emit_gp)
-
-
-def k5_checks(torch, fbb):
-    """K5 against ``bwd_site_plain`` on the card; returns (max_err, (kernel,
-    plain) device ms at the stage-1 tail)."""
-    from openset_imagenet_tpu_torch.tools import _card
-
-    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
-    max_err, rows, sites = 0.0, [], []
-    for seed, (name, m, ci, co, form, names) in enumerate(K5_CASES):
-        for dname in names:
-            dtype = dtypes[dname]
-            args, kw = k5_inputs(torch, m, ci, co, form, dtype, SEED + seed)
-            kernel = lambda: fbb.bwd_site(*args, **kw)
-            plain = lambda: fbb.bwd_site_plain(*args, **kw)
-            got, again = kernel(), kernel()
-            torch.cuda.synchronize()
-            ref = plain()
-            where = f"K5 {name} [M={m}, ci={ci}, co={co}] {dname}"
-            flat = lambda o: [o[0], o[1], o[2], *o[3], *o[4]]
-            for a, b in zip(flat(got), flat(again)):
-                check(a is None or torch.equal(a, b),
-                      f"{where}: two launches differ")
-            dx, gp, dw, so, si = got
-            rdx, rgp, rdw, rso, rsi = ref
-            check(dx.dtype == dtype and dw.dtype == torch.float32,
-                  f"{where}: output dtypes")
-            check((gp is None) == (rgp is None) and
-                  (gp is None or torch.equal(gp, rgp)), f"{where}: gp")
-            for label, a, b in [("dW", dw, rdw), *zip(
-                    ("s_mul_o", "s_add_o", "s_mul_i", "s_add_i"),
-                    (*so, *si), (*rso, *rsi))]:
-                if b is None:
-                    continue
-                rel = float((a - b).norm() / b.norm().clamp(min=1e-30))
-                check(rel <= 1e-4, f"{where}: {label} {rel:.3e} rel in norm")
-                max_err = max(max_err, float((a - b).abs().max()))
-            tol = (2e-2, 1e-2) if dtype == torch.bfloat16 else (1e-5, 1e-5)
-            check(torch.allclose(dx.float(), rdx.float(), rtol=tol[0],
-                                 atol=tol[1]), f"{where}: dx")
-            max_err = max(max_err, float((dx.float() - rdx.float()).abs()
-                                         .max()))
-            del got, again, ref, dx, gp, dw, rdx, rgp, rdw
-            if seed < K5_SITES and dname == "bf16":
-                in_act, has_mask, has_ds, emit_gp = K5_FORMS[form]
-                nbytes, flops = fbb.traffic(
-                    m, ci, co, in_act=in_act, has_mask=has_mask,
-                    has_ds=has_ds, emit_gp=emit_gp)
-                route = fbb._plan(m, ci, co, dtype, in_act, has_mask, has_ds,
-                                  True, fbb._sm_count(0))[0]
-                # Where the fused route takes a site, the tiled route's
-                # time beside it: the measured side of the threshold.
-                tiled_ms = None if route != "fused" else graph_ms(
-                    lambda: fbb._kernel_site(*args, **kw, route="tiled"),
-                    calls=5, reps=5)
-                sites.append((name, m, ci, co, route,
-                              graph_ms(kernel, calls=5, reps=5),
-                              nbytes / _card.BYTES_PER_S * 1e3,
-                              flops / _card.BF16_FLOP_PER_S * 1e3, tiled_ms))
-            if name in K5_PLAIN_TIMED and dname == "bf16":
-                rows.append((name, m, ci, co, time_ms(kernel, reps=10),
-                             time_ms(plain, reps=10),
-                             graph_ms(kernel, calls=5, reps=5),
-                             graph_ms(plain, calls=5, reps=5)))
-            del args
-            torch.cuda.empty_cache()
-    print("K5 site          shape                  call_ms   plain_call_ms"
-          "  dev_ms    plain_dev_ms")
-    for name, m, ci, co, ms, pms, dms, pdms in rows:
-        print(f"{name:16s} [{m},{ci}]x[{ci},{co}]".ljust(40) +
-              f"{ms:.4f}   {pms:.4f}        {dms:.4f}   {pdms:.4f}")
-    print("K5 site          shape                 route   dev_ms    "
-          "bytes_ms  ops_ms    share_of_bound  tiled_route_ms")
-    for name, m, ci, co, route, dms, bms, oms, tms in sites:
-        print(f"{name:16s} [{m};{ci}->{co}]".ljust(38) + f"{route:7s} "
-              f"{dms:.4f}    {bms:.4f}    {oms:.4f}    "
-              f"{max(bms, oms) / dms:.3f}           " +
-              ("-" if tms is None else f"{tms:.4f}"))
-    print(f"K5: every check passed over {sum(len(c[5]) for c in K5_CASES)} "
-          f"cases; max |err| {max_err:.3e}; the {len(sites)} resnet50 sites "
-          f"{sum(s[5] for s in sites):.4f} ms in all, bound "
-          f"{sum(max(s[6], s[7]) for s in sites):.4f} ms")
-    return max_err, (rows[0][6], rows[0][7])
-
-
-# -- phase 2c: K6 against its plain version and K5 ---------------------------
-
-# name, M, ci, co, dtypes: every resnet50 tail site at 224 px, batch 256,
-# a ragged M, and ragged channel counts (the scalar-load path).
-K6_CASES = [
-    ("stage1 tail", 802816, 64, 256, ("bf16",)),
-    ("stage2 tail", 200704, 128, 512, ("bf16",)),
-    ("stage3 tail", 50176, 256, 1024, ("bf16",)),
-    ("stage4 tail", 12544, 512, 2048, ("bf16", "f32")),
-    ("ragged M", 12544 + 77, 512, 2048, ("bf16", "f32")),
-    ("ragged channels", 1000 + 3, 37, 21, ("bf16", "f32")),
-]
-K6_TIMED = ("stage1 tail", "stage4 tail")
-
-
-def rel_norm(a, b):
-    return float((a - b).norm() / b.norm().clamp(min=1e-30))
-
-
-def k6_checks(torch, ss, fbb):
-    """K6 against ``tail_site_split_plain`` and K5's unified site; returns
-    (max_err, (kernel, plain, K5) device ms at the stage-1 tail).  At the
-    timed tails, each K6 kernel's device ms (profiler) beside its own
-    stage bound, and the site's ms beside the split's floor and the site's
-    bound.  The tolerance checks run after every number is printed."""
-    from openset_imagenet_tpu_torch.tools import _card
-    from openset_imagenet_tpu_torch.tools import bench_split_site as tool
-
-    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
-    labels = ("dW", "s_mul_o", "s_add_o", "s_mul_i", "s_add_i")
-    flat = lambda o: [o[0], o[1], o[2], *o[3], *o[4]]
-    max_err, rows, worst, late, stages = 0.0, [], {}, [], []
-    for seed, (name, m, ci, co, names) in enumerate(K6_CASES):
-        for dname in names:
-            dtype = dtypes[dname]
-            k5_args, k5_kw = k5_inputs(torch, m, ci, co, "tail", dtype,
-                                       SEED + 100 + seed)
-            route = ss._plan(m, ci, co, dtype, True, fbb._sm_count(0)).route
-            g, z, mask, x, _, w, mul_o, _, mul_i, add_i = k5_args
-            args = (g, z, mask, x, w, mul_o, mul_i, add_i)
-            kernel = lambda: ss.tail_site_split(*args)
-            plain = lambda: ss.tail_site_split_plain(*args)
-            unified = lambda: fbb.bwd_site(*k5_args, **k5_kw)
-            got, again = kernel(), kernel()
-            torch.cuda.synchronize()
-            where = f"K6 {name} [M={m}, ci={ci}, co={co}] {dname}"
-            for a, b in zip(flat(got), flat(again)):
-                check(torch.equal(a, b), f"{where}: two launches differ")
-            del again
-            check(got[0].dtype == got[1].dtype == dtype and
-                  got[2].dtype == torch.float32, f"{where}: dtypes")
-            for ref_name, reference in (("plain", plain), ("K5", unified)):
-                ref = reference()
-                check(torch.equal(got[1], ref[1]), f"{where}: gp vs "
-                      f"{ref_name}")
-                if ref_name == "plain":
-                    tol, dx_tol = 1e-4, ((2e-2, 1e-2) if dtype ==
-                                         torch.bfloat16 else (1e-5, 1e-5))
-                else:
-                    tol = 8e-2 if dtype == torch.bfloat16 else 1e-5
-                    dx_tol = (tol, tol)
-                for label, a, b in zip(labels, flat(got)[2:], flat(ref)[2:]):
-                    rel = rel_norm(a, b)
-                    key = (ref_name, dname, label)
-                    worst[key] = max(worst.get(key, 0.0), rel)
-                    late.append((rel <= tol, f"{where}: {label} {rel:.3e} "
-                                 f"rel in norm vs {ref_name}"))
-                    if ref_name == "plain":
-                        max_err = max(max_err, float((a - b).abs().max()))
-                late.append((torch.allclose(
-                    got[0].float(), ref[0].float(), rtol=dx_tol[0],
-                    atol=dx_tol[1]), f"{where}: dx vs {ref_name}"))
-                if ref_name == "plain":
-                    max_err = max(max_err, float(
-                        (got[0].float() - ref[0].float()).abs().max()))
-                if ref_name == "plain" and dtype == torch.bfloat16 and \
-                        name in K6_TIMED:
-                    # The input-side sums add dxa after its rounding to
-                    # bf16; how far each side is from the same dataflow
-                    # with a float64 product.
-                    dz = (ref[1].float() * mul_o).to(dtype)
-                    dxa = (dz.double() @ w.double().t()).to(dtype)
-                    xa = torch.relu(x * mul_i.to(dtype) + add_i.to(dtype))
-                    gin = torch.where(xa.float() > 0, dxa.double(), 0.0)
-                    s64 = ((gin * x.double()).sum(0), gin.sum(0))
-                    print(f"{where}: s_mul_i, s_add_i vs a float64 product, "
-                          "rel in norm: kernel " + ", ".join(
-                              f"{rel_norm(a.double(), b):.3e}"
-                              for a, b in zip(got[4], s64)) + "; plain " +
-                          ", ".join(f"{rel_norm(a.double(), b):.3e}"
-                                    for a, b in zip(ref[4], s64)))
-                    del dz, dxa, xa, gin
-                del ref
-            del got
-            if name in K6_TIMED and dname == "bf16":
-                rows.append((name, m, ci, co, time_ms(kernel, reps=10),
-                             time_ms(plain, reps=10),
-                             graph_ms(kernel, calls=5, reps=5),
-                             graph_ms(plain, calls=5, reps=5),
-                             graph_ms(unified, calls=5, reps=5)))
-                per_kernel = tool.kernel_ms(
-                    lambda: [kernel() for _ in range(tool.CHAIN)])
-                bounds = {k: _card.bound_ms(b)[0] for k, b in
-                          tool.stage_bytes(m, ci, co).items()}
-                stages.append((name, route, per_kernel, bounds,
-                               _card.bound_ms(tool.function_bytes(m, ci, co),
-                                              tool.function_flops(m, ci, co)
-                                              )[0], rows[-1][6]))
-            del args, k5_args
-            torch.cuda.empty_cache()
-    for ref_name in ("plain", "K5"):
-        print(f"K6 vs {ref_name}, worst rel in norm: " + ", ".join(
-            f"{d} {lab} {v:.3e}" for (r, d, lab), v in sorted(worst.items())
-            if r == ref_name))
-    print("K6 site          shape                  call_ms   plain_call_ms"
-          "  dev_ms    plain_dev_ms  K5_dev_ms")
-    for name, m, ci, co, ms, pms, dms, pdms, udms in rows:
-        print(f"{name:16s} [{m},{ci}]x[{ci},{co}]".ljust(40) +
-              f"{ms:.4f}   {pms:.4f}        {dms:.4f}   {pdms:.4f}"
-              f"       {udms:.4f}")
-    for name, route, per_kernel, bounds, site_bound, ms in stages:
-        print(f"K6 {name} ({route}) by kernel, dev_ms / own stage bound "
-              "(share): " + ", ".join(
-                  f"{k} {v:.4f}" + (
-                      f" / {bounds[tool.stage_of(k)]:.4f} "
-                      f"({bounds[tool.stage_of(k)] / v:.3f})"
-                      if tool.stage_of(k) else "")
-                  for k, v in sorted(per_kernel.items())))
-        floor = sum(bounds.values())
-        print(f"K6 {name}: {ms:.4f} ms, the split's floor {floor:.4f} ms "
-              f"({floor / ms:.3f}), the site's bound {site_bound:.4f} ms "
-              f"({site_bound / ms:.3f})")
-    for ok, message in late:
-        check(ok, message)
-    print(f"K6: every check passed over {sum(len(c[4]) for c in K6_CASES)} "
-          f"cases; max |err| {max_err:.3e}")
-    return max_err, rows[0][6:9]
-
-
-# -- phase 2d: K7 against its plain versions ----------------------------------
-
-K7_SHAPES = ((8, 3136, 256), (8, 3001, 256))
-
-
-def _with_specials(torch, t):
-    """``t`` with NaNs of both signs, +-0, +-inf and subnormals of both
-    signs strewn over it (every 7th element, cycling)."""
-    special = torch.tensor([0x7FC0, 0xFFC0, 0x7F81, 0x0000, 0x8000, 0x7F80,
-                            0xFF80, 0x0001, 0x8001, 0x007F, 0x807F],
-                           dtype=torch.int32).to(torch.int16)
-    flat = t.clone().view(torch.int16).view(-1)
-    picks = torch.arange(0, flat.numel(), 7, device=t.device)
-    flat[picks] = special.to(t.device)[torch.arange(
-        picks.numel(), device=t.device) % special.numel()]
-    return flat.view(torch.bfloat16).view(t.shape)
-
-
-def k7_checks(torch, sp):
-    """K7 against its plain versions and the library calls that compute
-    the same function, bit for bit; returns (max_err, {name: (kernel,
-    plain, library) device ms at [8, 3136, 256]})."""
-    from openset_imagenet_tpu_torch.tools import bench_stream as tool
-
-    max_err, timing = {}, {}
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 200)
-    draw = lambda shape: (torch.randn(*shape, generator=gen, device="cuda")
-                          .to(torch.bfloat16))
-    same_bits = lambda a, b: a.dtype == b.dtype and torch.equal(
-        a.view(torch.int16), b.view(torch.int16))
-    runs = {"stream_axpy": (sp.axpy, sp.axpy_plain, torch.add),
-            "stream_relu_mask": (
-                sp.relu_mask, sp.relu_mask_plain,
-                lambda g, m: torch.ops.aten.threshold_backward(g, m, 0))}
-    for name, key in (("stream_axpy", "axpy"),
-                      ("stream_relu_mask", "relu_mask")):
-        tile, programs, warps = sp._plan(
-            int(np.prod(K7_SHAPES[0])), sp.LAUNCH[key],
-            sp.sm_count(torch.device("cuda")))
-        print(f"K7 {name} launch: {sp.LAUNCH[key]._asdict()} -> tile "
-              f"{tile}, {programs} programs of {warps} warps at "
-              f"{list(K7_SHAPES[0])}")
-    # Both shapes, an odd element count and a view at storage offset 1
-    # (its data pointer 2 bytes past a 16-byte boundary).  relu_mask's
-    # mask carries the special values.
-    cases = []
-    for label, shape in [(f"{list(s)}", s) for s in K7_SHAPES] + [
-            ("n=4097", (4097,)), ("offset 1", ((1 << 16) + 1,))]:
-        a, b = draw(shape), draw(shape)
-        m = _with_specials(torch, b)
-        if label == "offset 1":
-            a, b, m = a[1:], b[1:], m[1:]
-            check(a.data_ptr() % 16 == 2 and m.data_ptr() % 16 == 2,
-                  "the offset views are aligned")
-        cases.append((label, {"stream_axpy": (a, b),
-                              "stream_relu_mask": (a, m)}))
-    for label, operands in cases:
-        for name, (kernel, plain, library) in runs.items():
-            a, b = operands[name]
-            got, again = kernel(a, b), kernel(a, b)
-            torch.cuda.synchronize()
-            ref = plain(a, b)
-            check(same_bits(got, again), f"{name} {label}: two launches "
-                  "differ")
-            check(same_bits(got, ref),
-                  f"{name} {label}: not bit-equal to the plain version")
-            lib = library(a, b)
-            if name == "stream_relu_mask":
-                # threshold_backward passes g through where the mask is
-                # NaN; the kernel, as JAX, gives 0 there.
-                ok = ~torch.isnan(b)
-                check(same_bits(got[ok], lib[ok]), f"{name} {label}: "
-                      "threshold_backward's bits differ off the NaNs")
-                check(bool((got[~ok] == 0).all()), f"{name} {label}: a "
-                      "NaN mask did not give 0")
-            else:
-                check(same_bits(got, lib),
-                      f"{name} {label}: torch.add's bits differ")
-            max_err[name] = max(max_err.get(name, 0.0), float(
-                (got.float() - ref.float()).abs().max()))
-    # Timed in the bench tool's cold harness (a pair and an output for each
-    # call of a 20-call graph, 770 MB a replay, the L2 flushed first), so
-    # no byte comes from the L2; kernel and library in turns (kernel,
-    # library, library, kernel), the plain version after.  The warm
-    # harness used before (four rotating pairs, one output buffer) is
-    # printed beside it.
-    cold = tool.operand_pairs(K7_SHAPES[0], cold=True, seed=SEED + 201)
-    warm = tool.operand_pairs(K7_SHAPES[0], cold=False, seed=SEED + 202)
-    for name, (kernel, plain, library) in runs.items():
-        t = tool.in_turns(kernel, library, cold, cold=True)
-        w = tool.in_turns(kernel, library, warm, cold=False)
-        timing[name] = (t["us"] / 1e3,
-                        tool.device_us(plain, cold, cold=True) / 1e3,
-                        t["library_us"] / 1e3)
-        print(f"K7 {name} [8,3136,256] bf16, device us in turns, cold: "
-              f"kernel {t['us_turns'][0]:.3f} {t['us_turns'][1]:.3f}, "
-              f"library {t['library_turns'][0]:.3f} "
-              f"{t['library_turns'][1]:.3f}, plain "
-              f"{timing[name][1] * 1e3:.3f}; warm4: kernel "
-              f"{w['us_turns'][0]:.3f} {w['us_turns'][1]:.3f}, library "
-              f"{w['library_turns'][0]:.3f} {w['library_turns'][1]:.3f}")
-    return max_err, timing
+    device = torch.device("cuda")
+    for name, fn, args in cuda_checks.MAIN_PATH:
+        t0 = time.perf_counter()
+        try:
+            fn(device, *args)
+        except AssertionError as err:
+            raise RuntimeError(f"check failed: {name} {args} against its "
+                               f"plain version: {err}") from err
+        print(f"{name} {args}: matches its plain version "
+              f"({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+    return {name for name, _, _ in cuda_checks.MAIN_PATH}
 
 
 # -- phase 2e: the bench tools as entry points --------------------------------
@@ -1205,156 +302,6 @@ def tool_runs():
           and stream[3]["launches"]["stream_relu_mask"] > 0,
           f"the tools' kernel cases did not launch their kernels: {launches}")
     return launches
-
-
-# -- phase 2g: the batch-norm kernels against their plain versions ----------
-
-def resnet50_bn_shapes(batch=256, image=IMAGE):
-    """``[(N, C, H, W), ...]`` of the 53 batch-norms of a resnet50 forward,
-    in order (the stem's, then each bottleneck's bn1, bn2, bn3 and the
-    first block's downsample)."""
-    hw = image // 2
-    shapes = [(batch, 64, hw, hw)]
-    hw //= 2
-    for stage, blocks in enumerate((3, 4, 6, 3)):
-        width = 64 * 2 ** stage
-        for j in range(blocks):
-            out = hw // 2 if stage > 0 and j == 0 else hw
-            shapes += [(batch, width, hw, hw), (batch, width, out, out),
-                       (batch, 4 * width, out, out)]
-            if j == 0:
-                shapes.append((batch, 4 * width, out, out))
-            hw = out
-    check(len(shapes) == 53, f"{len(shapes)} resnet50 batch-norms")
-    return shapes
-
-
-def bn_checks(torch, bnk):
-    """The batch-norm kernels at every resnet50 shape at batch 256 (bf16,
-    channels-last, the train cells' window of 64 images): the apply
-    bit-equal to its plain version in both forms, the statistics within
-    rtol 1e-5 and the backward against bn_grad_plain, each launch twice
-    with the same bits; then each kernel, its plain version and the
-    library call beside it timed cold and in turns.  Returns the times,
-    each summed over the 53 batch-norms of a step, and each kernel's
-    largest |kernel - plain version| (the apply's over both forms)."""
-    from openset_imagenet_tpu_torch.tools import _card
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 300)
-    same = lambda a, b: torch.equal(a.view(torch.int16), b.view(torch.int16))
-    rel = lambda a, b: float((a.float() - b.float()).norm()
-                             / max(float(b.float().norm()), 1e-30))
-    shapes = resnet50_bn_shapes()
-    counts = {s: shapes.count(s) for s in shapes}
-    names = ("stats", "apply", "eval", "backward", "train_fwd")
-    total = {k: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0}
-             for k in names}
-    max_err = {"bn_stats": 0.0, "bn_apply": 0.0, "bn_backward": 0.0}
-    for shape, count in counts.items():
-        n, c, h, w = shape
-        m, r = n * h * w, GHOST * h * w
-        draw = lambda scale, shift: (torch.randn(
-            *shape, generator=gen, device=dev) * scale + shift).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        x, g = draw(2.0, 0.5), draw(1.0, 0.0)
-        wgt = torch.rand(c, generator=gen, device=dev) + 0.5
-        bias = torch.randn(c, generator=gen, device=dev) * 0.1
-        rm = torch.randn(c, generator=gen, device=dev) * 0.1
-        rv = torch.rand(c, generator=gen, device=dev) + 0.5
-        stats = bnk.bn_stats(x, GHOST, rm.clone(), rv.clone(), 0.9)
-        ref = bnk.bn_stats_plain(x, GHOST, rm.clone(), rv.clone(), 0.9)
-        check(torch.equal(stats, bnk.bn_stats(x, GHOST, rm.clone(),
-                                               rv.clone(), 0.9)),
-              f"bn_stats {shape}: two launches differ")
-        err = float(((stats[:2] - ref[:2]).abs()
-                     / ref[:2].abs().clamp(min=1e-6)).max())
-        check(err <= 1e-5, f"bn_stats {shape}: rel err {err}")
-        max_err["bn_stats"] = max(max_err["bn_stats"], float(
-            (stats[:2] - ref[:2]).abs().max()))
-        for ghost, (mean, var) in ((True, (ref[0], ref[1])),
-                                   (False, (rm, rv))):
-            y = bnk.bn_apply(x, mean, var, wgt, bias, 1e-5, ghost)
-            want = bnk.bn_apply_plain(x, mean, var, wgt, bias, 1e-5, ghost)
-            max_err["bn_apply"] = max(max_err["bn_apply"], float(
-                (y.float() - want.float()).abs().max()))
-            check(same(y, want),
-                  f"bn_apply {shape} ghost={ghost}: not bit-equal to plain")
-            check(same(y, bnk.bn_apply(x, mean, var, wgt, bias, 1e-5,
-                                       ghost)),
-                  f"bn_apply {shape}: two launches differ")
-        ref = ref.contiguous()
-        got = bnk.bn_backward(g, x, wgt, ref, GHOST, True, 1e-5)
-        want = bnk.bn_grad_plain(g, x, wgt, ref, GHOST, True, 1e-5)
-        again = bnk.bn_backward(g, x, wgt, ref, GHOST, True, 1e-5)
-        check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              f"bn_backward {shape}: two launches differ")
-        check(same(got[0][GHOST:], want[0][GHOST:]),
-              f"bn_backward {shape}: dx outside the window differs")
-        errs = (rel(got[0][:GHOST], want[0][:GHOST]), rel(got[1], want[1]),
-                rel(got[2], want[2]))
-        check(errs[0] <= 1e-3 and max(errs[1:]) <= 1e-5,
-              f"bn_backward {shape}: rel errs {errs}")
-        max_err["bn_backward"] = max(max_err["bn_backward"], float(
-            (got[0].float() - want[0].float()).abs().max()))
-        # Cold, in turns: kernel, plain version, library call.
-        mean, invstd = torch.batch_norm_stats(x, 1e-5)
-        lib_bwd = lambda: torch.ops.aten.native_batch_norm_backward(
-            g, x, wgt, rm, rv, mean, invstd, True, 1e-5, [True, True, True])
-        runs = {
-            ("stats", "kernel"): lambda: bnk.bn_stats(x, GHOST, rm, rv, 0.9),
-            ("stats", "plain"): lambda: bnk.bn_stats_plain(x, GHOST, rm, rv,
-                                                           0.9),
-            ("stats", "library"): lambda: torch.batch_norm_stats(x[:GHOST],
-                                                                 1e-5),
-            ("apply", "kernel"): lambda: bnk.bn_apply(
-                x, stats[0], stats[1], wgt, bias, 1e-5, True),
-            ("apply", "plain"): lambda: bnk.bn_apply_plain(
-                x, stats[0], stats[1], wgt, bias, 1e-5, True),
-            ("apply", "library"): lambda: torch.batch_norm_elemt(
-                x, wgt, bias, mean, invstd, 1e-5),
-            ("eval", "kernel"): lambda: bnk.bn_apply(x, rm, rv, wgt, bias,
-                                                     1e-5, False),
-            ("eval", "plain"): lambda: bnk.bn_apply_plain(x, rm, rv, wgt,
-                                                          bias, 1e-5, False),
-            ("eval", "library"): lambda: torch.batch_norm(
-                x, wgt, bias, rm, rv, False, 0.1, 1e-5, True),
-            ("backward", "kernel"): lambda: bnk.bn_backward(
-                g, x, wgt, ref, GHOST, True, 1e-5),
-            ("backward", "plain"): lambda: bnk.bn_grad_plain(
-                g, x, wgt, ref, GHOST, True, 1e-5),
-            ("backward", "library"): lib_bwd,
-            ("train_fwd", "kernel"): lambda: bnk.bn_apply(
-                x, *bnk.bn_stats(x, GHOST, rm, rv, 0.9)[:2], wgt, bias, 1e-5,
-                True),
-            ("train_fwd", "library"): lambda: torch.batch_norm(
-                x, wgt, bias, rm.clone(), rv.clone(), True, 0.1, 1e-5, True),
-        }
-        ms = _card.cold_in_turns(runs, reps=5)
-        bounds = {"stats": 2 * r * c, "apply": 4 * m * c, "eval": 4 * m * c,
-                  "backward": 6 * m * c + 6 * r * c,
-                  "train_fwd": 2 * r * c + 4 * m * c}
-        for name in names:
-            bound = _card.bound_ms(bounds[name])[0]
-            total[name]["bound"] += count * bound
-            for who in ("kernel", "plain", "library"):
-                total[name][who] += count * ms.get((name, who), 0.0)
-        share = {name: 100 * _card.bound_ms(bounds[name])[0]
-                 / ms[(name, "kernel")] for name in names}
-        print(f"bn {list(shape)} x{count}: " + ", ".join(
-            f"{name} {ms[(name, 'kernel')] * 1e3:.1f} us "
-            f"({share[name]:.0f}% of bound; plain "
-            f"{ms.get((name, 'plain'), 0) * 1e3:.1f}, library "
-            f"{ms[(name, 'library')] * 1e3:.1f})" for name in names))
-        del x, g, runs, got, want, again
-    for name in names:
-        t = total[name]
-        print(f"bn {name}, the 53 batch-norms of a batch-256 step: kernel "
-              f"{t['kernel']:.3f} ms, bound {t['bound']:.3f} ms "
-              f"({100 * t['bound'] / t['kernel']:.1f}%), plain "
-              f"{t['plain']:.3f} ms, library {t['library']:.3f} ms")
-    torch.cuda.empty_cache()
-    return total, max_err
 
 
 # -- phase 3: serving ---------------------------------------------------------
@@ -1455,21 +402,6 @@ def serve(torch, out_dir):
     d_ref = np.abs(answers[64][3][:2] - ref_scores).max()
     print(f"bf16 GPU vs float32 CPU scores (2 images): max |d| {d_ref:.3e}")
     check(d_ref <= 2e-2, "GPU scores disagree with the float32 reference")
-
-    rates = {}
-    for b in (64, 256):
-        batch_imgs = np.random.default_rng(b).integers(
-            0, 256, (b, IMAGE, IMAGE, 3), np.uint8)
-        on_device = torch.from_numpy(batch_imgs).cuda()
-        fwd = time_ms(lambda: pred._forward(pred.model, on_device), reps=20)
-        t0 = time.perf_counter()
-        for _ in range(10):
-            pred.predict(batch_imgs)
-        e2e = (time.perf_counter() - t0) / 10 * 1e3
-        rates[b] = (b / fwd * 1e3, b / e2e * 1e3)
-        print(f"batch {b}: forward (device-resident uint8) {fwd:.3f} ms = "
-              f"{rates[b][0]:.1f} imgs/s; predict() from host numpy "
-              f"{e2e:.3f} ms = {rates[b][1]:.1f} imgs/s")
     return pred
 
 
@@ -1630,7 +562,7 @@ def train_all(torch, fl, out_dir):
         r.state.step == 3 for r in small.values()), "steps taken")
     for loss, t in trackers.items():
         print(f"train {loss}: j {t['j'].avg:.6f} over {t['j'].count:.0f} "
-              f"rows, {t['imgs/s'].avg:.1f} imgs/s (epoch, host clock)")
+              "rows")
         check(np.isfinite(t["j"].avg) and t["j"].count > 0,
               f"{loss}: loss {t['j'].avg}")
     check(trackers["entropic"]["j"].count == TRAIN_ROWS,
@@ -1646,7 +578,7 @@ def train_all(torch, fl, out_dir):
 
 
 def train_checks(torch, ghost):
-    """Loss falls on one batch; kernel vs plain step; rates and memory."""
+    """Loss falls on one batch; kernel vs plain step."""
     import copy
 
     batch = next(iter(ghost.pipeline.epoch(1)))
@@ -1703,10 +635,6 @@ def train_checks(torch, ghost):
           f"{float((gk - gp).abs().max()):.3e}; parameter gradients: max "
           f"relative norm difference {worst:.3e} ({worst_name})")
     check(worst <= 2e-2, "parameter gradients: kernels vs fused=False")
-
-    rates_in_turns(torch, {"kernels": (state, ghost.steps["auto"]),
-                           "fused=False": (state, ghost.steps[False])},
-                   images, labels, mask)
 
 
 def rates_in_turns(torch, forms, images, labels, mask, n=5):
@@ -1797,8 +725,8 @@ def written_out_norms(model):
     """Run every batch-norm module of ``model`` written out
     (``use_kernel=False``), as the fused block's ghost pre-pass and fold
     are: then a fused model and its unfused twin differ by the fused
-    backward alone (the batch-norm kernels are held to the written-out
-    path in phase 2g and the card tests)."""
+    backward alone (the card tests hold the batch-norm kernels to the
+    written-out path)."""
     from openset_imagenet_tpu_torch.models.norm import BatchNorm
 
     for m in model.modules():
@@ -2255,8 +1183,9 @@ def write_test_index(out_dir):
 
 def device_ms_by_kernel(torch, fn):
     """``{kernel: device ms}`` of one warm call of ``fn`` (torch.profiler),
-    largest first; the window opens with a marker kernel, as in
-    :func:`kernels_of`."""
+    largest first.  The window opens with a marker kernel
+    (``torch.cuda._sleep``, left out of the names): a window can miss its
+    first launch."""
     fn()
     torch.cuda.synchronize()
     cuda = torch.profiler.ProfilerActivity.CUDA
@@ -2398,10 +1327,6 @@ def evaluate_phase(torch, fl, fbb, out_dir):
                 if split == "test":
                     check(np.array_equal(gt, test_labels.astype(np.float32)),
                           f"evaluate {loss}{suffix}: test labels")
-                print(f"evaluate {loss}{suffix} {split}: {rows} rows in "
-                      f"{w['seconds']:.3f} s, {rows / w['seconds']:.1f} "
-                      f"imgs/s (host clock, get_arrays at batch {batch}; "
-                      f"{card})")
             # The first test batch against a model loaded apart.
             pred = OpenSetPredictor(exp / f"{loss}{suffix}.pth",
                                     image_size=IMAGE, device="cuda")
@@ -2532,11 +1457,10 @@ def bucket_rule(label, got_cls, got_measure, ref_cls, ref_scores):
     return d
 
 
-def predict_cli_phase(inference, best, val_arr, card):
+def predict_cli_phase(inference, best, val_arr):
     """Phase 9, item 2: ``script.predict.main`` in-process on 600
     placeholder paths with the synthetic reader, streamed and serial,
-    then with ``--threshold-at-fpr``; the pinned staging against pageable
-    host buffers, in turns."""
+    then with ``--threshold-at-fpr``."""
     from openset_imagenet_tpu_torch.pipeline import SyntheticReader
     from openset_imagenet_tpu_torch.script import predict
 
@@ -2552,19 +1476,17 @@ def predict_cli_phase(inference, best, val_arr, card):
     def run(tag, *extra):
         out = best.parent / f"{tag}.csv"
         npz = best.parent / f"{tag}.npz"
-        t0 = time.perf_counter()
         rc = predict.main(
             [str(best), "auto", str(listing), "--imagenet-directory",
              str(root), "--reader", "synthetic", "--device", "cuda",
              "--image-size", str(IMAGE),
              "--batch-size", str(PREDICT_BATCH), "--features-output",
              str(npz), "-o", str(out), *extra])
-        seconds = time.perf_counter() - t0
         check(rc == 0, f"predict {tag}: exit code {rc}")
-        return out, np.load(npz), seconds
+        return out, np.load(npz)
 
-    streamed, s_npz, s_sec = run("streamed")
-    serial, n_npz, n_sec = run("serial", "--no-stream")
+    streamed, s_npz = run("streamed")
+    serial, n_npz = run("serial", "--no-stream")
     check(streamed.read_bytes() == serial.read_bytes(),
           "predict: the streamed and serial CSVs differ")
     check(sorted(s_npz.files) == sorted(n_npz.files) ==
@@ -2593,13 +1515,11 @@ def predict_cli_phase(inference, best, val_arr, card):
               f"predict: rows {i}... differ from predict() on the same "
               "pixels")
     print(f"predict CLI, resnet50 {IMAGE} px, {PREDICT_PATHS} paths at "
-          f"batch {PREDICT_BATCH}, synthetic reader: streamed "
-          f"{PREDICT_PATHS / s_sec:.1f} imgs/s ({s_sec:.3f} s), serial "
-          f"{PREDICT_PATHS / n_sec:.1f} imgs/s ({n_sec:.3f} s), the model "
-          f"load included (host clock; {card}); CSVs byte-equal, archives' "
-          "arrays byte-equal, every row bit-equal to predict()")
+          f"batch {PREDICT_BATCH}, synthetic reader, streamed and serial: "
+          "CSVs byte-equal, archives' arrays byte-equal, every row "
+          "bit-equal to predict()")
 
-    fpr, f_npz, _ = run("calibrated", "--threshold-at-fpr", "0.1",
+    fpr, f_npz = run("calibrated", "--threshold-at-fpr", "0.1",
                         "--calibrate", str(val_arr))
     threshold = inference.calibrate_threshold(val_arr, 0.1, "softmax",
                                               False)
@@ -2612,31 +1532,6 @@ def predict_cli_phase(inference, best, val_arr, card):
         "predict --threshold-at-fpr: a row is -1 iff its score < threshold")
     print(f"predict --threshold-at-fpr 0.1: threshold {threshold:.6g}, "
           f"{sum(rejected)} of {PREDICT_PATHS} rows rejected")
-
-    # The pinned staging buffer against a pageable one, in turns.
-    pageable = lambda shape, device: np.empty(shape, np.uint8)
-    pinned = inference._host_buffer
-    turns = []
-    try:
-        for name, buffer in (("pinned", pinned), ("pageable", pageable),
-                             ("pageable", pageable), ("pinned", pinned)):
-            inference._host_buffer = buffer
-            pred._reader = reader
-            t0 = time.perf_counter()
-            for _ in pred.predict_stream(paths, batch_size=PREDICT_BATCH):
-                pass
-            stream_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            for i in range(0, PREDICT_PATHS, PREDICT_BATCH):
-                pred.predict(paths[i:i + PREDICT_BATCH])
-            serial_s = time.perf_counter() - t0
-            turns.append(f"{name} {PREDICT_PATHS / stream_s:.1f} / "
-                         f"{PREDICT_PATHS / serial_s:.1f}")
-    finally:
-        inference._host_buffer = pinned
-    print(f"predict_stream / serial predict(), imgs/s at batch "
-          f"{PREDICT_BATCH}, host staging in turns: {'; '.join(turns)} "
-          f"(host clock; {card})")
     del pred
 
 
@@ -2912,7 +1807,7 @@ def serving_phase(torch, best, val_arr):
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        predict_cli_phase(inference, best, val_arr, card)
+        predict_cli_phase(inference, best, val_arr)
         daemon_phase(inference, serve, best, card)
     finally:
         torch.backends.cudnn.deterministic = deterministic
@@ -2930,19 +1825,7 @@ def serving_phase(torch, best, val_arr):
 
 # -- phase 10: inference optimization ----------------------------------------
 
-I8_CHECK_BATCH = 4        # the per-shape checks against the plain version
-I8_TIMED_BATCH = 256      # the per-shape times
-I8_LINE_SHAPE = (56, 64, 64, 3, 1)   # the kernels line: stage-1 3x3 conv
 I8_CONVS = 52             # QuantConvs in one resnet50 forward
-# Shapes beside resnet50's: (batch, H, cin, cout, kernel, stride, groups):
-# ragged M and channel counts, and the grouped convs of resnext50_32x4d's
-# four stages (4, 8, 16 and 32 channels a group: the SIMT route).
-I8_EXTRA = [(3, 13, 64, 64, 3, 1, 1), (5, 9, 64, 256, 3, 2, 1),
-            (1, 7, 128, 72, 1, 1, 1), (2, 11, 96, 40, 1, 1, 1),
-            (2, 56, 128, 128, 3, 1, 32), (2, 56, 256, 256, 3, 2, 32),
-            (2, 28, 256, 256, 3, 1, 32), (2, 28, 512, 512, 3, 2, 32),
-            (2, 14, 512, 512, 3, 1, 32), (2, 14, 1024, 1024, 3, 2, 32),
-            (2, 7, 1024, 1024, 3, 1, 32)]
 # fold_bn's largest |softmax - unoptimized softmax| on phase 9's paths: the
 # H100 readings were 6.2e-6 and 7.8e-6 (PERF.md §6, PR 12); a wrong fold
 # scale or bias moves the scores by far more.
@@ -2958,148 +1841,6 @@ OPT_MODES = {"none": {}, "fold_bn": {"optimize": "fold_bn"},
              "int8": {"optimize": "int8"},
              "int8_p99.9": {"optimize": "int8",
                             "calibration_percentile": 99.9}}
-
-
-def i8_operands(torch, b, h, cin, cout, k, groups, seed, extreme=False):
-    rng = np.random.default_rng(seed)
-    q = rng.integers(-127, 128, (b, h, h, cin)).astype(np.int8)
-    w = rng.integers(-127, 128, (cout, k, k, cin // groups)).astype(np.int8)
-    if extreme:  # the largest sums, and channels that are all zero
-        q[...] = 127
-        w[...] = -127
-        q[..., ::5] = 0
-        w[::3] = 0
-    scale = (rng.random(cout) * 1e-4 + 1e-6).astype(np.float32)
-    bias = rng.normal(size=cout).astype(np.float32)
-    return [torch.from_numpy(a).cuda() for a in (q, w, scale, bias)]
-
-
-def im2col(torch, q, k, stride, padding):
-    """``[M, k*k*C]`` rows of an NHWC int8 tensor, in the kernel's (tap,
-    channel) order: a view for a 1x1 stride-1 conv, else a copy."""
-    if k == 1 and stride == 1:
-        return q.view(-1, q.shape[-1])
-    qp = torch.nn.functional.pad(q, (0, 0, padding, padding, padding,
-                                     padding))
-    cols = qp.unfold(1, k, stride).unfold(2, k, stride)
-    return cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * q.shape[-1])
-
-
-def int_mm(torch, cols, w):
-    """cuBLASLt's int8 GEMM of the im2col rows and the weight, [M, Cout]
-    int32.  The weight goes in as its transposed view (no copy): the
-    ``[Cout, K]`` rows are the column-major ``[K, Cout]`` operand."""
-    return torch._int_mm(cols, w.view(w.shape[0], -1).t())
-
-
-def int8_checks(torch, ic):
-    """Phase 10, item 1: ``int8_conv`` against its plain version bit for
-    bit, and timed with its yardsticks.  Returns the kernels line's
-    numbers."""
-    from openset_imagenet_tpu_torch.tools import _card
-
-    card = _card.card_line()
-    shapes = ic.resnet50_shapes(IMAGE)
-    check(sum(shapes.values()) == 52, f"resnet50 QuantConvs: {shapes}")
-    cases = [(I8_CHECK_BATCH, *shape, 1) for shape in sorted(shapes)]
-    cases += I8_EXTRA
-    n = 0
-    for i, (b, h, cin, cout, k, s, g) in enumerate(cases):
-        for extreme in (False, True):
-            q, w, scale, bias = i8_operands(torch, b, h, cin, cout, k, g,
-                                            seed=i, extreme=extreme)
-            pad = 1 if k == 3 else 0
-            for dtype in (torch.bfloat16, torch.float32):
-                got = ic.int8_conv(q, w, scale, bias, s, pad, g, dtype)
-                want = ic.int8_conv_plain(q, w, scale, bias, s, pad, g,
-                                          dtype)
-                check(torch.equal(got, want),
-                      f"int8_conv {(b, h, cin, cout, k, s, g)} {dtype} "
-                      f"extreme={extreme}: max |d| "
-                      f"{(got.float() - want.float()).abs().max()}")
-                n += 1
-            if g == 1 and not extreme:
-                acc = ic.int8_conv_acc_plain(q, w, s, pad, g)
-                mm = int_mm(torch, im2col(torch, q, k, s, pad), w)
-                check(torch.equal(mm, acc.view(-1, cout)),
-                      f"torch._int_mm over im2col {(h, cin, cout, k, s)}: "
-                      "int32 sums differ from the plain version's")
-    print(f"int8_conv: {n} cases bit-equal to the plain version (every "
-          f"resnet50 QuantConv shape at batch {I8_CHECK_BATCH}, ragged and "
-          "grouped shapes, extreme operands, bf16 and float32 out); "
-          "torch._int_mm over an im2col gives the plain version's int32 "
-          "sums at every resnet50 shape")
-    q, w, _, _ = i8_operands(torch, 1, 4, 8, 8, 1, 1, seed=0)
-    try:
-        y = torch.nn.functional.conv2d(q.permute(0, 3, 1, 2),
-                                       w.permute(0, 3, 1, 2))
-        print(f"F.conv2d on int8 CUDA tensors returns {y.dtype}")
-    except RuntimeError as err:
-        print(f"F.conv2d on int8 CUDA tensors raises: {str(err)[:160]}")
-
-    print(f"int8_conv per resnet50 QuantConv shape at batch "
-          f"{I8_TIMED_BATCH}, device µs a call from CUDA-graph replays "
-          f"({card}): kernel / bound (by) / torch._int_mm GEMM alone / "
-          "im2col + _int_mm / cuDNN bf16 conv, channels_last")
-    line = {}
-    forward = {"kernel": 0.0, "bound": 0.0, "gemm": 0.0, "im2col_gemm": 0.0,
-               "cudnn": 0.0}
-    for shape in sorted(shapes, key=lambda t: (-t[0], t[1], t[2])):
-        h, cin, cout, k, s = shape
-        pad = 1 if k == 3 else 0
-        q, w, scale, bias = i8_operands(torch, I8_TIMED_BATCH, h, cin, cout,
-                                        k, 1, seed=h + cin)
-        route = ic._plan(cin, cout, 1, True)
-        ms = graph_ms(lambda: ic.int8_conv(q, w, scale, bias, s, pad),
-                      calls=10, reps=10)
-        # The timed operands, held to the plain version bit for bit.
-        got = ic.int8_conv(q, w, scale, bias, s, pad)
-        want = ic.int8_conv_plain(q, w, scale, bias, s, pad)
-        err = (got.float() - want.float()).abs().max().item()
-        check(torch.equal(got, want),
-              f"int8_conv {shape} at batch {I8_TIMED_BATCH}: max |d| {err}")
-        del got, want
-        nbytes, ops = ic.traffic(I8_TIMED_BATCH, h, h, cin, cout, k, s, pad,
-                                 1)
-        bound, bound_by = _card.bound_ms(nbytes, ops, _card.INT8_OP_PER_S)
-        cols = im2col(torch, q, k, s, pad)
-        gemm = graph_ms(lambda: int_mm(torch, cols, w), calls=10, reps=10)
-        both = graph_ms(lambda: int_mm(torch, im2col(torch, q, k, s, pad),
-                                       w), calls=10, reps=10)
-        del cols
-        x = torch.randn(I8_TIMED_BATCH, cin, h, h, device="cuda").to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        wb = torch.randn(cout, cin, k, k, device="cuda").to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        cudnn = graph_ms(lambda: torch.nn.functional.conv2d(
-            x, wb, None, s, pad), calls=10, reps=10)
-        del x, wb
-        count = shapes[shape]
-        for key, v in (("kernel", ms), ("bound", bound), ("gemm", gemm),
-                       ("im2col_gemm", both), ("cudnn", cudnn)):
-            forward[key] += count * v
-        print(f"  H {h} {cin}->{cout} {k}x{k}/{s} ({count} a forward, "
-              f"{route}): {ms * 1e3:.1f} / {bound * 1e3:.1f} ({bound_by}, "
-              f"{ops / ms / 1e9:.0f} TOP/s, {bound / ms:.2f} of bound) / "
-              f"{gemm * 1e3:.1f} / {both * 1e3:.1f} / {cudnn * 1e3:.1f}")
-        if shape == I8_LINE_SHAPE:
-            line = {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
-                    "library_ms": both, "gemm_ms": gemm, "max_abs_err": err}
-            line["plain_ms"] = graph_ms(
-                lambda: ic.int8_conv_plain(q, w, scale, bias, s, pad),
-                calls=2, reps=3)
-            print(f"  plain version (float64 F.conv2d + eager epilogue) at "
-                  f"this shape: {line['plain_ms'] * 1e3:.1f} µs")
-        del q, w
-    print("  the 52 convs of one forward at batch "
-          f"{I8_TIMED_BATCH}, ms: kernel {forward['kernel']:.3f}, bound "
-          f"{forward['bound']:.3f}, _int_mm {forward['gemm']:.3f}, im2col "
-          f"+ _int_mm {forward['im2col_gemm']:.3f}, cuDNN bf16 "
-          f"{forward['cudnn']:.3f}")
-    print(f"  each timed call's output at batch {I8_TIMED_BATCH} is "
-          "bit-equal to the plain version's on the same operands")
-    torch.cuda.empty_cache()
-    return line
 
 
 def agree_with_tie_slack(c0, s0, c1, s1, flips):
@@ -3353,173 +2094,12 @@ def optimize_phase(torch, inference, serve, ic, best, card):
         srv.close()
 
 
-def loss_bound(name, b, c):
-    """Least device ms of a loss kernel on [b, c] float32 logits: the
-    logits, labels and row mask or weights read once, and the scalars
-    (K2: g and the count; K4: g and the weight sum), the outputs written
-    once (K1, K3: two sums and the mean; K2, K4: the gradient), against about
-    six float32 operations an element outside the tensor cores."""
-    from openset_imagenet_tpu_torch.tools import _card
-
-    scalars = {"entropic_fwd": 12, "ce_fwd": 12, "entropic_bwd": 8,
-               "ce_bwd": 8}[name]
-    logits = 4 * b * c if name.endswith("fwd") else 8 * b * c
-    return _card.bound_ms(logits + 8 * b + scalars, 6 * b * c,
-                          _card.F32_FLOP_PER_S)
-
-
-# -- phase 2h: the Swin's window attention ----------------------------------
-
-def sdpa_window_path(torch, qkv, table, ws, shift, heads):
-    """The library yardstick: the written-out Swin attention around
-    ``F.scaled_dot_product_attention`` (roll, window partition, the bias
-    and region mask as one additive bf16 mask padded to a multiple of 8,
-    the memory-efficient kernel, the transposes, merge and reverse roll).
-    Timed here only; the port never calls it."""
-    import torch.nn.functional as F
-
-    from openset_imagenet_tpu_torch.models import swin
-
-    b, h, w, c3 = qkv.shape
-    c, n = c3 // 3, ws * ws
-    y = torch.roll(qkv, (-shift, -shift), (1, 2)) if shift else qkv
-    y = swin.window_partition(y, ws)
-    bw = y.shape[0]
-    q, k, v = y.view(bw, n, 3, heads, c // heads).permute(2, 0, 3, 1,
-                                                           4).unbind(0)
-    index = swin.relative_position_index(ws, ws).to(qkv.device)
-    bias = table[index].view(n, n, heads).permute(2, 0, 1)
-    if shift:
-        region = swin.region_mask(h, w, ws, shift).to(qkv.device)
-        nw = region.shape[0]
-        mask = (region[:, None] + bias[None]).to(qkv.dtype)
-        mask = F.pad(mask, (0, -n % 8)).expand(
-            bw // nw, -1, -1, -1, -1).reshape(bw, heads, n, -1)[..., :n]
-    else:
-        mask = F.pad(bias.to(qkv.dtype), (0, -n % 8))[..., :n].unsqueeze(0)
-    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                         scale=(c // heads) ** -0.5)
-    out = swin.window_reverse(out.transpose(1, 2).reshape(bw, n, c), ws, h,
-                              w)
-    return torch.roll(out, (shift, shift), (1, 2)) if shift else out
-
-
-# Swin-B's four stages at batch 256: (map side, channels, heads, the shifts
-# its blocks take); stage 4's map is one window, so its blocks never shift.
-WA_STAGES = {"stage1": (56, 128, 4, (0, 3)), "stage2": (28, 256, 8, (0, 3)),
-             "stage3": (14, 512, 16, (0, 3)), "stage4": (7, 1024, 32, (0,))}
-WA_TIMED = ("stage1", "stage3")   # timed shifted by 3
-
-
-def window_attention_checks(torch, wak):
-    """Phase 2h: the window-attention kernels at Swin-B's four stage
-    shapes, batch 256, bf16, with every shift the main path gives each
-    stage (0 and 3; stage 4 only 0): output, qkv gradient and table
-    gradient against the plain version (the card tests' tolerances), the
-    backward twice with the same bits.  Then, at stages 1 and 3 shifted
-    by 3, cold and in turns, the forward and the forward + backward of the
-    kernels, of the plain version and of the SDPA path they replace,
-    beside the bytes bound (q, k, v read and the output written forward;
-    q, k, v and the output's gradient read and dq, dk, dv written
-    backward; the log-sum-exp both ways).  Returns the timed lines and,
-    under ``max_abs_err``, the largest absolute error of every check."""
-    from openset_imagenet_tpu_torch.tools import _card
-
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 400)
-    rel = lambda a, b: float((a.float() - b.float()).norm()
-                             / max(float(b.float().norm()), 1e-30))
-    lines, max_err = {}, 0.0
-    for label, (side, c, heads, shifts) in WA_STAGES.items():
-        b, ws = 256, 7
-        qkv = torch.randn(b, side, side, 3 * c, generator=gen,
-                          device="cuda").to(torch.bfloat16)
-        table = torch.randn(169, heads, generator=gen, device="cuda") * 0.5
-        grad = torch.randn(b, side, side, c, generator=gen,
-                           device="cuda").to(torch.bfloat16)
-
-        def run(fn, shift, backward=True):
-            x = qkv.detach().requires_grad_(backward)
-            t = table.detach().requires_grad_(backward)
-            out = fn(x, t, ws, shift)
-            if not backward:
-                return out, None, None
-            out.backward(grad)
-            return out.detach(), x.grad, t.grad
-
-        sdpa = lambda x, t, w_, s_: sdpa_window_path(torch, x, t, w_, s_,
-                                                     heads)
-        for shift in shifts:
-            case = f"{label} shift {shift}"
-            got = run(wak.window_attention, shift)
-            again = run(wak.window_attention, shift)
-            check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                  f"window attention {case}: two runs differ")
-            want = run(wak.window_attention_plain, shift)
-            errs = [rel(a, b) for a, b in zip(got, want)]
-            check(errs[0] <= 1e-3 and errs[1] <= 1e-2 and errs[2] <= 1e-5,
-                  f"window attention {case}: rel errs {errs}")
-            lib_errs = [rel(a, b) for a, b in zip(run(sdpa, shift), want)]
-            print(f"window attention {case} [{b}, {side}, {side}, {3 * c}] "
-                  f"heads {heads}: rel err against plain out {errs[0]:.2e}, "
-                  f"dqkv {errs[1]:.2e}, dtable {errs[2]:.2e}; the SDPA "
-                  f"path's {lib_errs[0]:.2e}, {lib_errs[1]:.2e}, "
-                  f"{lib_errs[2]:.2e}")
-            max_err = max([max_err] + [float((a.float() - b.float()).abs()
-                                             .max()) for a, b in zip(got,
-                                                                     want)])
-            del got, again, want
-            torch.cuda.empty_cache()
-        if label not in WA_TIMED:
-            del qkv, table, grad
-            torch.cuda.empty_cache()
-            continue
-        shift = 3
-        g = wak._geometry(qkv, table, ws, shift)
-        _, lse = wak._forward(qkv, table, g, ws, shift)
-        with torch.no_grad():
-            fwd = {"kernel": lambda: wak._forward(qkv, table, g, ws, shift),
-                   "plain": lambda: run(wak.window_attention_plain, shift,
-                                        False),
-                   "library": lambda: run(sdpa, shift, False)}
-            ms_fwd = _card.cold_in_turns(fwd, reps=5)
-        both = {"kernel": lambda: run(wak.window_attention, shift),
-                "plain": lambda: run(wak.window_attention_plain, shift),
-                "library": lambda: run(sdpa, shift)}
-        ms_both = _card.cold_in_turns(both, reps=5)
-        ms_bwd = _card.cold_in_turns({"kernel": lambda: wak._backward(
-            grad, qkv, table, lse, g, ws, shift)}, reps=5)["kernel"]
-        tokens, lse_bytes = b * side * side, lse.numel() * 4
-        bound_fwd = _card.bound_ms(tokens * c * 4 * 2 + lse_bytes)[0]
-        bound_bwd = _card.bound_ms(tokens * c * 7 * 2 + lse_bytes)[0]
-        print(f"window attention {label}: forward kernel "
-              f"{ms_fwd['kernel'] * 1e3:.1f} us (bound {bound_fwd * 1e3:.1f},"
-              f" {100 * bound_fwd / ms_fwd['kernel']:.0f}%), plain "
-              f"{ms_fwd['plain'] * 1e3:.1f}, SDPA path "
-              f"{ms_fwd['library'] * 1e3:.1f}; backward kernel "
-              f"{ms_bwd * 1e3:.1f} us (bound {bound_bwd * 1e3:.1f}, "
-              f"{100 * bound_bwd / ms_bwd:.0f}%); forward + backward kernels "
-              f"{ms_both['kernel'] * 1e3:.1f} us, plain "
-              f"{ms_both['plain'] * 1e3:.1f}, SDPA path "
-              f"{ms_both['library'] * 1e3:.1f} (cold, in turns, "
-              f"{_card.card_line()})")
-        lines[label] = {"ms": ms_both["kernel"], "plain_ms": ms_both["plain"],
-                        "bound_ms": bound_fwd + bound_bwd,
-                        "library_ms": ms_both["library"]}
-        del qkv, table, grad, lse, fwd, both
-        torch.cuda.empty_cache()
-    lines["max_abs_err"] = max_err
-    return lines
-
-
 # -- phase 11: the Swin through the worker ------------------------------------
-
-SWIN_WINDOWS = 2 * 64 + 2 * 16 + 18 * 4 + 2 * 1  # an image's, a swin_b forward
-
 
 def swin_phase(torch, fl, out_dir):
     """Phase 11: four swin_b train steps through ``worker(cfg)``, the
-    attention path's counts and kernels, the checkpoint rebuilt as a Swin
-    by the predictor."""
+    attention kernels' launches and names, the checkpoint rebuilt as a
+    Swin by the predictor."""
     import shutil
 
     from openset_imagenet_tpu_torch import train as engine
@@ -3534,23 +2114,20 @@ def swin_phase(torch, fl, out_dir):
     arch = {"arch": "swin", "variant": "swin_b"}
     cfg = worker_cfg(out_dir, "swin", batch=BATCH, epochs=1, model=arch,
                      max_steps=4)
-    for counts in (fl.LAUNCHES, swin.COUNTS, wak.LAUNCHES):
+    for counts in (fl.LAUNCHES, wak.LAUNCHES):
         for k in counts:
             counts[k] = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     info = engine.worker(cfg)
     seconds = time.perf_counter() - t0
-    counts = dict(swin.COUNTS)
     launches = dict(wak.LAUNCHES)
     print(f"swin worker: info {info}, {seconds:.2f} s (host clock, with "
           f"set-up), peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
-          f"at batch {BATCH}, counts {counts}, launches {dict(fl.LAUNCHES)}"
-          f", window attention {launches}")
+          f"at batch {BATCH}, launches {dict(fl.LAUNCHES)}, window "
+          f"attention {launches}")
     check(info["stopped_mid_epoch"] == 4, f"swin: {info}")
-    check(counts == {"attention_calls": 4 * 24,
-                     "windows": 4 * BATCH * SWIN_WINDOWS},
-          f"swin: attention counts {counts}")
+    # One forward and one backward a block of Swin-B's 24, a step.
     check(launches == {"win_attn_fwd": 4 * 24, "win_attn_bwd": 4 * 24},
           f"swin: window-attention launches {launches}")
     check(fl.LAUNCHES["entropic_fwd"] == 4 and fl.LAUNCHES["entropic_bwd"]
@@ -3604,10 +2181,7 @@ def main():
     from openset_imagenet_tpu_torch.ops import fused_loss as fl
     from openset_imagenet_tpu_torch.ops import int8_conv as ic
     from openset_imagenet_tpu_torch.ops import stream_probe as sp
-    from openset_imagenet_tpu_torch.ops import window_attention as wak
     from openset_imagenet_tpu_torch.tools import _card
-    from openset_imagenet_tpu_torch.tools.bench_split_site import (
-        function_bytes, function_flops)
 
     out_dir = REPO / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -3616,60 +2190,29 @@ def main():
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
 
-    # nvcc builds K5, K6 and int8_conv side by side while Triton builds
-    # K1-K4 for their checks against the plain versions.  The checks that
-    # count launches with the profiler come after the builds and the
-    # libraries' loading: run beside them, a profiler window lost an event.
-    t_build = time.perf_counter()
+    # nvcc builds K5, K6 and int8_conv side by side; the tools' processes
+    # and the later phases then find them built (the build is keyed by
+    # the source).
+    t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        builds = [pool.submit(_build.build, m.SOURCE, name)
-                  for m, name in ((fbb, "fused_block_bwd"),
-                                  (ss, "split_site"), (ic, "int8_conv"))]
-        t0 = time.perf_counter()
-        max_err, timing, library = kernel_checks(torch, fl)
-        for build in builds:
+        for build in [pool.submit(_build.build, m.SOURCE, name)
+                      for m, name in ((fbb, "fused_block_bwd"),
+                                      (ss, "split_site"),
+                                      (ic, "int8_conv"))]:
             build.result()
     fbb._library()
     ss._library()
     ic._library()
-    print(f"K5, K6 and int8_conv built by nvcc, in parallel, within "
-          f"{time.perf_counter() - t_build:.1f} s")
-    one_launch_checks(torch, fl)
-    grad_err, grad_timing = grad_kernel_checks(torch, fl)
-    max_err.update(grad_err)
-    timing.update(grad_timing)
+    print(f"K5, K6 and int8_conv built by nvcc, in parallel, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    checked = kernel_table(torch)
     print(f"phase kernels: ok ({time.perf_counter() - t0:.1f} s incl. "
           "Triton builds)")
-    t0 = time.perf_counter()
-    k5_err, k5_timing = k5_checks(torch, fbb)
-    print(f"phase K5: ok ({time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    k6_err, k6_timing = k6_checks(torch, ss, fbb)
-    print(f"phase K6: ok ({time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    k7_err, k7_timing = k7_checks(torch, sp)
-    print(f"phase K7: ok ({time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    i8_line = int8_checks(torch, ic)
-    print(f"phase int8_conv: ok ({time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    bn_total, bn_err = bn_checks(torch, bnk)
-    print(f"phase batch-norm: ok ({time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    wa_lines = window_attention_checks(torch, wak)
-    print(f"phase window attention: ok ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     tool_launches = tool_runs()
     print(f"launches on the tools' path: {tool_launches}")
     print(f"phase tools: ok ({time.perf_counter() - t0:.1f} s)")
-    # Every graph_ms call warms up on a stream of its own, and cuBLAS keeps
-    # a workspace for each stream it ran on (32 MiB on this card): free
-    # those the timed plain versions left, so the peak memory that phases
-    # 5 and 6 report is the train path's.
-    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
-    if clear is not None:
-        clear()
-    torch.cuda.empty_cache()
 
     for counts in (fl.LAUNCHES, bnk.LAUNCHES):
         for k in counts:
@@ -3777,92 +2320,46 @@ def main():
     swin_launches = swin_phase(torch, fl, out_dir)
     print(f"phase swin: ok ({time.perf_counter() - t0:.1f} s)")
 
-    # Bounds at the shapes the times were taken at.
-    replaces = {"entropic_fwd": (39, 256, 116),
-                "entropic_bwd": (69, 256, 116),
-                "ce_fwd": (172, 64, 117), "ce_bwd": (191, 64, 117)}
-    kernels = []
-    for name, (line, b, c) in replaces.items():
-        bound, bound_by = loss_bound(name, b, c)
-        kernels.append({
-            "name": name, "route": "triton",
-            "source": "openset_imagenet_tpu_torch/ops/triton_fused_loss.py",
-            "replaces": f"openset_imagenet_tpu/ops/fused_loss.py:{line}",
-            "launches": (launches[name] + train_launches[name]
-                         + fused_launches[name] + worker_launches[name]),
-            "max_abs_err": max_err[name], "ms": timing[name][0],
-            "plain_ms": timing[name][1], "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": library.get(name)})
-    # K5 and K6 at the resnet50 stage-1 tail site (the tools' shape).
-    site_bound, site_by = _card.bound_ms(function_bytes(802816, 64, 256),
-                                         function_flops(802816, 64, 256))
-    kernels.append({
-        "name": "fused_block_bwd", "route": "cuda",
-        "source": "openset_imagenet_tpu_torch/csrc/fused_block_bwd.cu",
-        "replaces": "openset_imagenet_tpu/experimental/fused_block.py:111",
-        "launches": (fused_launches["fused_block_bwd"]
-                     + worker_launches["fused_block_bwd"]),
-        "max_abs_err": k5_err,
-        "ms": k5_timing[0], "plain_ms": k5_timing[1], "bound_ms": site_bound,
-        "bound_by": site_by, "library_ms": None})
-    kernels.append({
-        "name": "split_site", "route": "cuda",
-        "source": "openset_imagenet_tpu_torch/csrc/split_site.cu",
-        "replaces": "openset_imagenet_tpu/experimental/split_site.py:73",
-        "launches": tool_launches["split_site"], "max_abs_err": k6_err,
-        "ms": k6_timing[0], "plain_ms": k6_timing[1], "bound_ms": site_bound,
-        "bound_by": site_by, "library_ms": None})
-    stream_bound, stream_by = _card.bound_ms(3 * 8 * 3136 * 256 * 2)
-    for name, line in (("stream_axpy", 69), ("stream_relu_mask", 96)):
-        kernels.append({
-            "name": name, "route": "triton",
-            "source": "openset_imagenet_tpu_torch/ops/triton_stream_probe.py",
-            "replaces": f"tools/bench_pallas_stream.py:{line}",
-            "launches": tool_launches[name], "max_abs_err": k7_err[name],
-            "ms": k7_timing[name][0], "plain_ms": k7_timing[name][1],
-            "bound_ms": stream_bound, "bound_by": stream_by,
-            "library_ms": k7_timing[name][2]})
-    kernels.append({
-        "name": "int8_conv", "route": "cuda",
-        "source": "openset_imagenet_tpu_torch/csrc/int8_conv.cu",
-        "replaces": "openset_imagenet_tpu/models/quant.py:86",
-        "launches": opt_launches["int8_conv"],
-        "max_abs_err": i8_line["max_abs_err"], "ms": i8_line["ms"],
-        "plain_ms": i8_line["plain_ms"], "bound_ms": i8_line["bound_ms"],
-        "bound_by": i8_line["bound_by"],
-        "library_ms": i8_line["library_ms"]})
-    # The batch-norm kernels, each summed over a resnet50 step's 53
-    # shapes at batch 256 (phase 2g): bn_apply timed in its eval form,
-    # its error over both forms.
-    for name, key, launches_of in (("bn_stats", "stats", "bn_stats"),
-                                   ("bn_apply", "eval", "bn_apply"),
-                                   ("bn_backward", "backward", "bn_bwd")):
-        t = bn_total[key]
-        kernels.append({
-            "name": name, "route": "triton",
-            "source": "openset_imagenet_tpu_torch/ops/triton_batch_norm.py",
-            "replaces": "none: the written-out batch-norm of "
-                        "openset_imagenet_tpu_torch/models/norm.py",
-            "launches": bn_launches[launches_of],
-            "max_abs_err": bn_err[name], "ms": t["kernel"],
-            "plain_ms": t["plain"], "bound_ms": t["bound"],
-            "bound_by": "bytes", "library_ms": t["library"]})
-    # The window attention, forward and backward, timed at Swin-B's
-    # stage-1 shape at batch 256, its error the largest of phase 2h's
-    # checks at the four stages; launches those of phase 11's worker.
-    wa = wa_lines["stage1"]
-    kernels.append({
-        "name": "window_attention", "route": "triton",
-        "source": "openset_imagenet_tpu_torch/ops/triton_window_attention.py",
-        "replaces": "none: F.scaled_dot_product_attention and the roll, "
-                    "partition, mask and merge copies of the Swin's "
-                    "written-out window attention",
-        "launches": sum(swin_launches.values()),
-        "max_abs_err": wa_lines["max_abs_err"], "ms": wa["ms"],
-        "plain_ms": wa["plain_ms"], "bound_ms": wa["bound_ms"],
-        "bound_by": "bytes", "library_ms": wa["library_ms"]})
+    # Each kernel's source, what it replaces, and its launches on its path.
+    pkg = "openset_imagenet_tpu_torch"
+    loss_launches = {k: launches[k] + train_launches[k] + fused_launches[k]
+                     + worker_launches[k] for k in fl.LAUNCHES}
+    bn = ("triton", f"{pkg}/ops/triton_batch_norm.py",
+          f"none: the written-out batch-norm of {pkg}/models/norm.py")
+    rows = [
+        *((name, "triton", f"{pkg}/ops/triton_fused_loss.py",
+           f"openset_imagenet_tpu/ops/fused_loss.py:{line}",
+           loss_launches[name])
+          for name, line in (("entropic_fwd", 39), ("entropic_bwd", 69),
+                             ("ce_fwd", 172), ("ce_bwd", 191))),
+        ("fused_block_bwd", "cuda", f"{pkg}/csrc/fused_block_bwd.cu",
+         "openset_imagenet_tpu/experimental/fused_block.py:111",
+         fused_launches["fused_block_bwd"]
+         + worker_launches["fused_block_bwd"]),
+        ("split_site", "cuda", f"{pkg}/csrc/split_site.cu",
+         "openset_imagenet_tpu/experimental/split_site.py:73",
+         tool_launches["split_site"]),
+        *((name, "triton", f"{pkg}/ops/triton_stream_probe.py",
+           f"tools/bench_pallas_stream.py:{line}", tool_launches[name])
+          for name, line in (("stream_axpy", 69), ("stream_relu_mask", 96))),
+        ("int8_conv", "cuda", f"{pkg}/csrc/int8_conv.cu",
+         "openset_imagenet_tpu/models/quant.py:86",
+         opt_launches["int8_conv"]),
+        ("bn_stats", *bn, bn_launches["bn_stats"]),
+        ("bn_apply", *bn, bn_launches["bn_apply"]),
+        ("bn_backward", *bn, bn_launches["bn_bwd"]),
+        ("window_attention", "triton",
+         f"{pkg}/ops/triton_window_attention.py",
+         "none: F.scaled_dot_product_attention and the roll, partition, "
+         "mask and merge copies of the Swin's written-out window attention",
+         sum(swin_launches.values())),
+    ]
+    kernels = [dict(zip(("name", "route", "source", "replaces",
+                         "launches"), row)) for row in rows]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")
+    check(checked == {k["name"] for k in kernels},
+          f"phase 2 checked {sorted(checked)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

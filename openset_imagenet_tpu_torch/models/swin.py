@@ -40,11 +40,13 @@ and writes the output back at the same places, which ``proj`` reads.  On
 the card that is two hand-written kernels (one forward, one backward);
 on the CPU its plain version.  Scores, softmax and the bias are float32;
 q, k, v and the softmax weights are in the compute dtype.  No roll,
-partition, merge or mask exists in device memory.  The relative-position
-index and the region mask that :meth:`SwinBlock.geometry` keeps depend on
-the map's size alone and are derived at the first forward at a size, one
-set a device, so a model built on ``meta`` and filled by
-``load_state_dict`` holds no uninitialised buffer.
+partition, merge or mask exists in device memory: a block's window and
+shift (:meth:`SwinBlock.geometry`) depend on its map's size alone, and
+the op derives the bias index and the region by index, so a model built
+on ``meta`` and filled by ``load_state_dict`` holds no buffer.
+:func:`relative_position_index`, :func:`region_mask`,
+:func:`window_partition` and :func:`window_reverse` are the written-out
+forms of what the op derives, which the tests hold it against.
 
 ``state_dict`` names follow the official code (``patch_embed.proj.*``,
 ``patch_embed.norm.*``, ``layers.{i}.blocks.{j}.{norm1, attn.qkv,
@@ -52,15 +54,15 @@ attn.proj, attn.relative_position_bias_table, norm2, mlp.fc1, mlp.fc2}.*``,
 ``layers.{i}.downsample.{norm, reduction}.*``, ``norm.*``), and the heads
 are ``fc.*`` and ``logits.*``.
 
-``COUNTS`` counts the window-attention calls and the windows they took;
-each block's attention (the ``qkv`` product, the window attention, the
-``proj`` product) is the device span ``swin.attention`` (:mod:`..tracing`).
+Each block's attention (the ``qkv`` product, the window attention, the
+``proj`` product) is the device span ``swin.attention`` (:mod:`..tracing`);
+on the card, ``window_attention.LAUNCHES`` counts the kernels' launches.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,7 +73,6 @@ from ..ops.window_attention import MASKED, window_attention
 from .resnet import Conv, Dense, _trunc_normal
 
 LN_EPSILON = 1e-5
-COUNTS = {"attention_calls": 0, "windows": 0}
 
 
 class LayerNorm(nn.Module):
@@ -148,9 +149,6 @@ class WindowAttention(nn.Module):
         """``x``: ``[B, H, W, C]`` tokens in the map's order -> ``[B, H, W,
         C]``: attention in the ``ws x ws`` windows of the map rolled by
         ``-shift``, merged and rolled back."""
-        b, h, w, _ = x.shape
-        COUNTS["attention_calls"] += 1
-        COUNTS["windows"] += b * (h // ws) * (w // ws)
         return self.proj(window_attention(
             self.qkv(x), self.relative_position_bias_table, ws, shift))
 
@@ -178,38 +176,22 @@ class SwinBlock(nn.Module):
                                     device=device)
         self.norm2 = LayerNorm(dim, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), device=device)
-        self._constants: dict = {}
 
-    def geometry(self, h: int, w: int, device):
-        """``(window, shift, index, region)`` of an ``h x w`` map: the
-        official rule (a map no larger than the window is one unshifted
-        window), the bias table's index and the region mask (None
-        unshifted), kept for each size and device."""
-        key = (h, w, torch.device(device))
-        got = self._constants.get(key)
-        if got is None:
-            got = self._constants[key] = self._derive(h, w, device)
-        return got
-
-    def _derive(self, h: int, w: int, device):
-        # Ordinary tensors even under inference_mode (a first forward in
-        # OpenSetPredictor), so that later training may use them.
-        with torch.inference_mode(False):
-            ws = self.window_size
-            shift = ws // 2 if self.shifted else 0
-            if min(h, w) <= ws:
-                ws, shift = min(h, w), 0
-            if h % ws or w % ws:
-                raise ValueError(f"a {h}x{w} token map does not divide "
-                                 f"into {ws}x{ws} windows")
-            index = relative_position_index(ws, self.window_size)
-            region = region_mask(h, w, ws, shift) if shift else None
-            return (ws, shift, index.to(device),
-                    None if region is None else region.to(device))
+    def geometry(self, h: int, w: int) -> Tuple[int, int]:
+        """``(window, shift)`` of an ``h x w`` token map: the official rule
+        (a map no larger than the window is one unshifted window)."""
+        ws = self.window_size
+        shift = ws // 2 if self.shifted else 0
+        if min(h, w) <= ws:
+            ws, shift = min(h, w), 0
+        if h % ws or w % ws:
+            raise ValueError(f"a {h}x{w} token map does not divide into "
+                             f"{ws}x{ws} windows")
+        return ws, shift
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1:3]
-        ws, shift, _, _ = self.geometry(h, w, x.device)
+        ws, shift = self.geometry(h, w)
         y = self.norm1(x)
         with tracing.span("swin.attention", device=x.device):
             y = self.attn(y, ws, shift)

@@ -1,8 +1,9 @@
 """What the port's Triton ops share: the card's SM count, the dtypes their
 kernels take, the launch of a kernel of a Triton module on a device's
 current stream, and the ticket counters of the kernels whose last program
-adds the other programs' partials in index order (the batch-norm's
-statistics and backward, the window attention's backward).
+adds the other programs' partials in index order (the loss forwards K1
+and K3, the batch-norm's statistics and backward, the window attention's
+backward).  Every Triton op of the package launches through :func:`run`.
 
 A Triton module is imported at its first launch, never when this module
 or an op's module is imported; its build cache is ``build/kernels/`` of

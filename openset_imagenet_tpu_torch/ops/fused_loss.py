@@ -33,19 +33,22 @@ not take is an error, never a silent switch to the plain version.
 
 ``LAUNCHES`` counts kernel launches (one per call of a wrapper that
 launched), so a run can show that its main path went through the kernels.
-K1 and K3 are one launch per call: their programs take tickets from an
-int32 counter kept per device and stream (:func:`_ticket`), and the last
-one adds the partials.
+K1 and K3 are one launch per call: their programs take tickets from the
+int32 counter of the device's current stream (:func:`._triton.ticket`,
+which the batch-norm and window-attention kernels share: every launch
+leaves its counters at 0, and one stream orders the launches), and the
+last one adds the partials.  Every kernel launches through
+:func:`._triton.run`.
 """
 
 from __future__ import annotations
 
-import os
-import pathlib
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from ._triton import run, ticket
 from .losses import _resolve_mask
 
 Tensor = torch.Tensor
@@ -53,26 +56,22 @@ Tensor = torch.Tensor
 LAUNCHES = {"entropic_fwd": 0, "entropic_bwd": 0, "ce_fwd": 0,
             "ce_bwd": 0}
 
-# Triton compiles at first use; its cache goes into the checkout's build/.
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 # Widest row the one-pass kernels hold in registers.
 MAX_CLASSES = 8192
 # Elements of one program's [rows, BLOCK_C] row tile, by kernel.  At
 # C <= 128, 256 elements are two rows and one warp a program.  On an
 # NVIDIA H100 80GB HBM3 at 700 W such small programs took less time than
 # 2048-element tiles, for K3 at [64, 117] and [256, 117] (and than one
-# program holding every row) and for K2 at [256, 116] and [64, 116]:
-# chip_smoke.py times those grids side by side.  K1 takes K3's grid, K4
-# K2's.
+# program holding every row) and for K2 at [256, 116] and [64, 116].  To
+# time other tiles, edit this table in a second checkout and run
+# tools/ab_torch_kernels.py, which times two checkouts' kernels in turns.
+# K1 takes K3's grid, K4 K2's.
 _TILE_ELEMS = {"entropic_fwd": 256, "ce_fwd": 256, "entropic_bwd": 256,
               "ce_bwd": 256}
 # Programs of a forward; a program loops over row tiles beyond this.
 _MAX_PROGRAMS = 1024
 # Partials the last program of a forward adds at a time.
 _SUM_BLOCK = 512
-# The forwards' ticket counters, one per (device index, stream); 0
-# between calls.
-_TICKETS: Dict[Tuple[int, int], Tensor] = {}
 
 
 # -- plain versions (CPU path; the reference the kernels are held to) --------
@@ -159,11 +158,7 @@ def ce_grad_plain(logits: Tensor, labels: Tensor, row_weights: Tensor,
 
 # -- kernel wrappers ----------------------------------------------------------
 
-def _kernels():
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR))
-    from . import triton_fused_loss
-
-    return triton_fused_loss
+_run = functools.partial(run, "triton_fused_loss")
 
 
 def _use_kernel(logits: Tensor, labels: Tensor, rows: Tensor) -> bool:
@@ -217,48 +212,21 @@ def _warps(elems: int) -> int:
     return 1 if elems <= 256 else 4 if elems <= 2048 else 8
 
 
-def _grid(b: int, c: int, tile_elems: Optional[int]
-          ) -> Tuple[int, int, int, int]:
+def _grid(b: int, c: int, tile_elems: int) -> Tuple[int, int, int, int]:
     """``(BLOCK_C, rows per tile, row tiles per program, programs)`` of a
     forward over ``[b, c]``: up to ``_MAX_PROGRAMS`` programs, each taking
     the same count of consecutive tiles of at most ``tile_elems`` elements
-    (the last may run past ``b``, masked); ``tile_elems=None``: one
-    program holding every row in one tile.
+    (the last may run past ``b``, masked).
     """
-    block_c, tile_rows = _tiling(c, tile_elems or 1)
-    if tile_elems is None:
-        return block_c, 1 << (b - 1).bit_length(), 1, 1
+    block_c, tile_rows = _tiling(c, tile_elems)
     n_tiles = -(-b // tile_rows)
     tiles = -(-n_tiles // _MAX_PROGRAMS)
     return block_c, tile_rows, tiles, -(-n_tiles // tiles)
 
 
-def _ticket(device: torch.device) -> Tensor:
-    """The int32 ticket counter of the current stream on ``device``.
-
-    Made once with ``torch.zeros``; every K1 or K3 launch leaves it at 0
-    (its last program resets it), so a call costs no launch to clear it.
-    One stream orders its launches, so K1 and K3 share its counter.  A
-    stream being captured into a CUDA graph must have called a forward
-    before the capture, so that no allocation lands in the graph.
-    """
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    counter = _TICKETS.get(key)
-    if counter is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "a loss forward in a CUDA-graph capture needs its ticket "
-                "counter made before the capture: call it once on the "
-                "capture stream first")
-        counter = _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
-                                              device=device)
-    return counter
-
-
 def _fwd_launch(name: str, logits: Tensor, labels: Tensor, rows: Tensor,
                 n_out: int, *scalars) -> Tensor:
     """K1 or K3 in one launch; returns its float32 ``[n_out]`` output."""
-    k = _kernels()
     b, c = logits.shape
     block_c, tile_rows, tiles, grid = _grid(b, c, _TILE_ELEMS[name])
     out = torch.empty(n_out, dtype=torch.float32, device=logits.device)
@@ -266,11 +234,11 @@ def _fwd_launch(name: str, logits: Tensor, labels: Tensor, rows: Tensor,
         (grid, 2), dtype=torch.float32, device=logits.device)
     # Only the kernel touches the counter, and its last program resets it:
     # a launch that raises here never ran, so the counter stays at 0.
-    getattr(k, f"{name}_once")[(grid,)](
-        logits, labels, rows, partials, out, _ticket(logits.device), b, c,
-        logits.stride(0), tiles, grid - 1, *scalars, ROWS=tile_rows,
-        BLOCK_C=block_c, SUM_BLOCK=_SUM_BLOCK,
-        num_warps=_warps(tile_rows * block_c))
+    _run(f"{name}_once", logits.device, (grid,),
+         logits, labels, rows, partials, out, ticket(logits.device, 1), b, c,
+         logits.stride(0), tiles, grid - 1, *scalars, ROWS=tile_rows,
+         BLOCK_C=block_c, SUM_BLOCK=_SUM_BLOCK,
+         num_warps=_warps(tile_rows * block_c))
     LAUNCHES[name] += 1
     return out
 
@@ -316,14 +284,13 @@ def _launch_grad(name: str, logits: Tensor, labels: Tensor, rows: Tensor,
     the kernel reads, in its argument order."""
     for arg, t in scalars.items():
         _check_scalar(arg, t, logits)
-    k = _kernels()
     b, c = logits.shape
     block_c, tile_rows = _tiling(c, _TILE_ELEMS[name])
     grad = torch.empty_like(logits)
-    getattr(k, name)[(-(-b // tile_rows),)](
-        logits, labels, rows, *scalars.values(), grad, b, c,
-        logits.stride(0), *consts, ROWS=tile_rows, BLOCK_C=block_c,
-        num_warps=_warps(tile_rows * block_c))
+    _run(name, logits.device, (-(-b // tile_rows),),
+         logits, labels, rows, *scalars.values(), grad, b, c,
+         logits.stride(0), *consts, ROWS=tile_rows, BLOCK_C=block_c,
+         num_warps=_warps(tile_rows * block_c))
     LAUNCHES[name] += 1
     return grad
 

@@ -22,23 +22,23 @@ the site backward kernels (K5, K6):
 
 Routing is by device only: CPU tensors go to the plain versions
 (``*_plain``), CUDA tensors launch the Triton kernels of
-:mod:`.triton_stream_probe` (imported, and built, at the first launch) or
-raise.  ``LAUNCHES`` counts the calls that launched a kernel.  The
-kernels see the operands as flat arrays, so every shape runs: full tiles
-unmasked, the one ragged tile masked.  :func:`_plan` lays out the launch
-(:data:`LAUNCH`, one configuration per kernel, chosen by
-``tools/bench_stream.py --launch-sweep`` on an H100) and
-:func:`_schedule` mirrors the tiles each program of the kernels walks.
+:mod:`.triton_stream_probe` through :func:`._triton.run` (imported, and
+built, at the first launch) or raise.  ``LAUNCHES`` counts the calls
+that launched a kernel.  The kernels see the operands as flat arrays, so
+every shape runs: full tiles unmasked, the one ragged tile masked.
+:func:`_plan` lays out the launch (:data:`LAUNCH`, one configuration per
+kernel, chosen by ``tools/bench_stream.py --launch-sweep`` on an H100)
+and :func:`_schedule` mirrors the tiles each program of the kernels
+walks.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
-from ._build import BUILD_DIR
+from ._triton import run
 
 Tensor = torch.Tensor
 
@@ -101,13 +101,6 @@ def _schedule(n: int, tile: int, programs: int
             yield p, full * tile, n, True
 
 
-def _kernels():
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR))
-    from . import triton_stream_probe
-
-    return triton_stream_probe
-
-
 def _use_kernel(name: str, a: Tensor, b: Tensor) -> bool:
     """False for CPU tensors (plain version); True after the checks pass."""
     if a.device.type == "cpu":
@@ -148,13 +141,11 @@ def sm_count(device: torch.device) -> int:
 
 def _launch(kernel: str, a: Tensor, b: Tensor, launch: Launch,
             *scalars) -> Tensor:
-    k = _kernels()
     out = torch.empty_like(a)
     tile, programs, warps = _plan(a.numel(), launch, sm_count(a.device))
-    with torch.cuda.device(a.device):
-        getattr(k, kernel)[(programs,)](a, b, out, a.numel(), *scalars,
-                                        TILE=tile, HINT=HINTS[launch.hint],
-                                        num_warps=warps)
+    run("triton_stream_probe", kernel, a.device, (programs,), a, b, out,
+        a.numel(), *scalars, TILE=tile, HINT=HINTS[launch.hint],
+        num_warps=warps)
     return out
 
 

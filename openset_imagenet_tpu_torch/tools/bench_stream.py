@@ -34,9 +34,9 @@ hints) at bf16 ``[8, 3136, 256]`` against the one library call that
 computes the same function bit for bit (``torch.add(x, b)`` for axpy,
 ``threshold_backward(g, m, 0)`` for relu_mask on a mask without NaN),
 each checked bit-equal to it first.  Each time is device µs from a CUDA
-graph of 20 calls, replayed, in two harnesses: ``warm4``, chip_smoke's
-method before this flag (four rotating operand pairs, 103 MB, and one
-output buffer rewritten every call), and ``cold`` (a pair and an output
+graph of 20 calls, replayed, in two harnesses: ``warm4``, the first
+timings' method (four rotating operand pairs, 103 MB, and one output
+buffer rewritten every call), and ``cold`` (a pair and an output
 for each call of the graph, 770 MB a replay, timed after the L2 is
 flushed, so no byte a call moves is still in the L2 from an earlier
 call).  Kernel and library are timed in turns (kernel,

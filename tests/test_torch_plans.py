@@ -219,9 +219,6 @@ def test_k3_grid_and_tickets(kernel, b, c):
     summed = [i for start in range(0, last + 1, fl._SUM_BLOCK)
               for i in range(start, start + fl._SUM_BLOCK) if i <= last]
     assert summed == list(range(grid))
-    # One program holding every row, the grid chip_smoke.py times beside.
-    assert fl._grid(b, c, None) == (block_c, 1 << (b - 1).bit_length(), 1,
-                                    1)
 
 
 @pytest.mark.parametrize("kernel", ["entropic_bwd", "ce_bwd"])

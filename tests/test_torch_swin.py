@@ -26,7 +26,7 @@ shifts in its odd block and stage 2 (4x4, one window) does not.
   worker trains, resumes and selects γ, the checkpoint is rebuilt as a
   Swin by ``resolve_model_cfg`` and ``OpenSetPredictor``, a checkpoint
   without ``arch`` as a ResNet; ``fold_bn`` and ``int8`` refuse a Swin;
-  the ``swin.attention`` spans and ``COUNTS``.
+  the ``swin.attention`` spans and the windows the attention took.
 """
 
 import json
@@ -47,6 +47,7 @@ from openset_imagenet_tpu_torch.config import NameSpace
 from openset_imagenet_tpu_torch.inference import OpenSetPredictor
 from openset_imagenet_tpu_torch.models import swin
 from openset_imagenet_tpu_torch.models.resnet import ResNet50
+from openset_imagenet_tpu_torch.ops.window_attention import window_attention
 from tests.test_torch_worker_host import (  # noqa: F401 (autouse fixture)
     curr_of, one_torch_thread, run, tiny_cfg, write_protocol_csvs)
 
@@ -181,7 +182,7 @@ def test_region_mask_isolates_the_regions_of_a_shifted_window():
     top) another.  The output at (6, 6) does not see (0, 6) or (6, 0),
     and does see (7, 7)."""
     block = _shifted_block()
-    assert block.geometry(8, 8, "cpu")[:2] == (4, 2)
+    assert block.geometry(8, 8) == (4, 2)
     x = torch.randn(1, 8, 8, 32, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         base = block(x)
@@ -196,19 +197,19 @@ def test_region_mask_isolates_the_regions_of_a_shifted_window():
 
 def test_unshifted_where_the_map_is_one_window():
     block = _shifted_block()
-    ws, shift, _, region = block.geometry(4, 4, "cpu")
-    assert (ws, shift, region) == (4, 0, None)
-    ws, shift, _, region = block.geometry(16, 16, "cpu")
-    assert (ws, shift) == (4, 2) and region.shape == (16, 16, 16)
+    assert block.geometry(4, 4) == (4, 0)
+    assert block.geometry(16, 16) == (4, 2)
+    region = swin.region_mask(16, 16, 4, 2)
+    assert region.shape == (16, 16, 16)
     assert sorted(set(region.unique().tolist())) == [swin.MASKED, 0.0]
     with pytest.raises(ValueError, match="6x6"):
-        block.geometry(6, 6, "cpu")
+        block.geometry(6, 6)
 
 
 def test_training_after_a_first_forward_under_inference_mode():
-    """The window constants a first forward derives (as the predictor's,
-    under ``torch.inference_mode``) are kept for later training steps,
-    which save them for the backward."""
+    """A training step after a first forward under
+    ``torch.inference_mode`` (the predictor's) has its gradients: the
+    forward keeps no tensor that a later backward would save."""
     model = _model()
     x = torch.from_numpy(_batch(6)[0]).float() / 255.0
     with torch.inference_mode():
@@ -305,14 +306,20 @@ def test_fold_bn_and_int8_refuse_a_swin():
             call()
 
 
-def test_attention_spans_and_counts_in_a_traced_step():
+def test_attention_spans_and_counts_in_a_traced_step(monkeypatch):
+    calls = []
+
+    def counted(qkv, table, ws, shift):
+        calls.append((qkv.shape, ws))
+        return window_attention(qkv, table, ws, shift)
+
+    monkeypatch.setattr(swin, "window_attention", counted)
     model = _model()
     step = engine.make_train_step(engine.make_loss_fn("entropic"))
     tx = engine.build_optimizer(NameSpace({"type": "adam", "lr": 1e-3}),
                                 steps_per_epoch=1)
     state = engine.create_state(model, tx)
     images, labels = _batch(4)
-    before = dict(swin.COUNTS)
     tracing.clear()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU]):
@@ -323,8 +330,9 @@ def test_attention_spans_and_counts_in_a_traced_step():
     assert len(spans) == 4  # one a block
     assert all(r.parent == "train.forward" and r.key == 7 for r in spans)
     # 8 images: stage 1 in 4 windows an image, stage 2 in one.
-    assert swin.COUNTS["attention_calls"] - before["attention_calls"] == 4
-    assert swin.COUNTS["windows"] - before["windows"] == 8 * (4 + 4 + 1 + 1)
+    assert len(calls) == 4
+    assert sum(b * (h // ws) * (w // ws) for (b, h, w, _), ws in calls) == \
+        8 * (4 + 4 + 1 + 1)
 
 
 def test_get_arrays_of_an_empty_split_sizes_the_swin_heads():

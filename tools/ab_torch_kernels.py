@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The loss kernels, K5, K6 and the train step of two checkouts of the PyTorch
-port, in turns.
+"""The loss kernels, K5, K6, int8_conv and the train step of two checkouts of
+the PyTorch port, in turns.
 
     python tools/ab_torch_kernels.py --parent build/parent [--steps 10]
 
@@ -37,6 +37,12 @@ turn measures, on the card:
   resnet50 stage-1 and stage-4 tails at batch 256: device ms per call
   from a graph replay of 5 calls, inputs drawn on the card from a fixed
   seed;
+* ``int8_conv`` (``ops.int8_conv.int8_conv``, bfloat16 out) at each
+  distinct convolution shape of resnet50 at 224 px and batch 256: device µs
+  per call from a graph replay of 10 calls, int8 operands drawn on the card
+  from a fixed seed, beside the card's bound for its bytes and int8
+  operations (``tools._card.bound_ms`` at ``INT8_OP_PER_S``); and the 52
+  convolutions of one forward, each shape times its count, in both;
 * the train step of a full-width resnet50 (116 classes, random weights
   from seed 0, ghost batch-norm over 64 rows, entropic loss, Adam at lr
   1e-3, bfloat16, channels_last, batch 256 of device-resident uint8), in
@@ -271,6 +277,33 @@ def k6(torch, ss):
     return out
 
 
+def int8(torch, ic):
+    from openset_imagenet_tpu_torch.tools import _card
+
+    out, forward, bound = {}, 0.0, 0.0
+    shapes = ic.resnet50_shapes(224)
+    for (h, cin, cout, k, s), count in sorted(shapes.items()):
+        pad = 1 if k == 3 else 0
+        gen = torch.Generator(device="cuda").manual_seed(h + cin + cout)
+        draw = lambda *shape: torch.randint(
+            -127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        q, w = draw(BATCH, h, h, cin), draw(cout, k, k, cin)
+        scale = torch.rand(cout, generator=gen, device="cuda") * 1e-4 + 1e-6
+        bias = torch.randn(cout, generator=gen, device="cuda")
+        key = f"[{h} {cin}->{cout} {k}x{k}/{s}]"
+        out[f"int8_us{key}"] = 1e3 * graph_ms(
+            torch, lambda: ic.int8_conv(q, w, scale, bias, s, pad), 10)
+        out[f"int8_bound_us{key}"] = 1e3 * _card.bound_ms(
+            *ic.traffic(BATCH, h, h, cin, cout, k, s, pad, 1),
+            _card.INT8_OP_PER_S)[0]
+        forward += count * out[f"int8_us{key}"]
+        bound += count * out[f"int8_bound_us{key}"]
+        del q, w
+    out["int8_forward_us"], out["int8_forward_bound_us"] = forward, bound
+    torch.cuda.empty_cache()
+    return out
+
+
 def train(torch, fused, steps):
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
@@ -344,6 +377,7 @@ def one_turn(turn, root, steps):
     from openset_imagenet_tpu_torch.experimental import split_site as ss
     from openset_imagenet_tpu_torch.ops import fused_block_bwd as fbb
     from openset_imagenet_tpu_torch.ops import fused_loss as fl
+    from openset_imagenet_tpu_torch.ops import int8_conv as ic
 
     result = {"turn": turn, "root": str(root),
               "device": torch.cuda.get_device_name(0)}
@@ -352,6 +386,7 @@ def one_turn(turn, root, steps):
     result.update(weighted_ce(torch, fl))
     result.update(k5(torch, fbb))
     result.update(k6(torch, ss))
+    result.update(int8(torch, ic))
     result.update(train(torch, False, steps))
     result.update(train(torch, True, steps))
     print(json.dumps(result), flush=True)
