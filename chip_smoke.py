@@ -24,8 +24,10 @@ window-attention kernels).
    and K4 at [64, 117], K5 and K6 at resnet50's stage-1 tail at batch 256,
    K7 at [8, 3136, 256], ``int8_conv`` at the stage-1 3x3 conv at batch
    256, the batch-norm kernels at a [256, 256, 56, 56] map with a window of
-   64 images, the window attention at Swin-B's four stages at batch 256;
-   the phase's table must name each kernel of that line;
+   64 images, the window attention at Swin-B's four stages at batch 256,
+   the LayerNorm fused with its junction at Swin-B's stages 1 and 3 and
+   alone at patch merging's 2,048 channels, at batch 256; the phase's
+   table must name each kernel of that line;
 2e. the two ported bench tools as the entry points they are, each in its
    own process with few iterations (``python -m openset_imagenet_tpu_torch.
    tools.bench_split_site --iters 2``, ``...bench_stream --iters 3``): their
@@ -170,9 +172,11 @@ window-attention kernels).
    (published widths) at batch 64 over phase 7's index, cut by
    ``max_steps: 4``: four train steps through the loss kernels, the
    window-attention kernels' ``LAUNCHES`` (one forward and one backward
-   a block of 24: 96 each), the attention kernels that ran in one
-   traced step (profiler names: ``osi_win_flash_fwd`` and
-   ``osi_win_flash_bwd`` alone, and no roll kernel), the ``_curr``
+   a block of 24: 96 each), the LayerNorm kernels' (a step: 8 alone and
+   45 fused with their junction, each way), the attention and LayerNorm
+   kernels that ran in one traced step (profiler names:
+   ``osi_win_flash_fwd``, ``osi_win_flash_bwd``, ``osi_layer_norm_fwd``
+   and ``osi_layer_norm_bwd`` alone, and no roll kernel), the ``_curr``
    checkpoint's ``extra.arch``, and ``OpenSetPredictor`` rebuilding a
    Swin from it on the card (finite scores on 64 images).
 
@@ -188,13 +192,13 @@ Float32 matmuls and convolutions run without TF32 (both backend flags
 off), so float32 comparisons on the card are exact float32.
 
 The second-to-last line is ``{"kernels": [...]}``: for each of the
-thirteen kernels, its ``name``, ``route`` (``triton`` or ``cuda``),
+fourteen kernels, its ``name``, ``route`` (``triton`` or ``cuda``),
 ``source``, what it ``replaces`` (the TPU kernel's file and line in the
 JAX package, or what the port ran before it where there is none) and its
 ``launches`` on its path (the loss kernels over phases 3-7, K5 over
 phases 6-7, K6 and K7 in phase 2e's tool processes, ``int8_conv`` in
-phase 10, the batch-norm kernels over phases 3-5, the window attention in
-phase 11); every kernel must have launched.  The last line is
+phase 10, the batch-norm kernels over phases 3-5, the window attention and
+the LayerNorm in phase 11); every kernel must have launched.  The last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and no result line is printed. Without a CUDA device
 the script exits non-zero at once. Build outputs (Triton's cache, the K5,
@@ -2106,6 +2110,7 @@ def swin_phase(torch, fl, out_dir):
     from openset_imagenet_tpu_torch.checkpoint import read_metadata
     from openset_imagenet_tpu_torch.inference import OpenSetPredictor
     from openset_imagenet_tpu_torch.models import swin
+    from openset_imagenet_tpu_torch.ops import layer_norm as lnk
     from openset_imagenet_tpu_torch.ops import window_attention as wak
 
     write_index(out_dir)
@@ -2114,7 +2119,7 @@ def swin_phase(torch, fl, out_dir):
     arch = {"arch": "swin", "variant": "swin_b"}
     cfg = worker_cfg(out_dir, "swin", batch=BATCH, epochs=1, model=arch,
                      max_steps=4)
-    for counts in (fl.LAUNCHES, wak.LAUNCHES):
+    for counts in (fl.LAUNCHES, wak.LAUNCHES, lnk.LAUNCHES):
         for k in counts:
             counts[k] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2122,14 +2127,19 @@ def swin_phase(torch, fl, out_dir):
     info = engine.worker(cfg)
     seconds = time.perf_counter() - t0
     launches = dict(wak.LAUNCHES)
+    ln_launches = dict(lnk.LAUNCHES)
     print(f"swin worker: info {info}, {seconds:.2f} s (host clock, with "
           f"set-up), peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
           f"at batch {BATCH}, launches {dict(fl.LAUNCHES)}, window "
-          f"attention {launches}")
+          f"attention {launches}, LayerNorm {ln_launches}")
     check(info["stopped_mid_epoch"] == 4, f"swin: {info}")
     # One forward and one backward a block of Swin-B's 24, a step.
     check(launches == {"win_attn_fwd": 4 * 24, "win_attn_bwd": 4 * 24},
           f"swin: window-attention launches {launches}")
+    # Swin-B's 53 LayerNorms a step: 8 alone, 45 fused with their junction.
+    check(ln_launches == {"ln_fwd": 4 * 8, "ln_add_fwd": 4 * 45,
+                          "ln_bwd": 4 * 8, "ln_add_bwd": 4 * 45},
+          f"swin: LayerNorm launches {ln_launches}")
     check(fl.LAUNCHES["entropic_fwd"] == 4 and fl.LAUNCHES["entropic_bwd"]
           == 4, f"swin: K1/K2 not on every step: {dict(fl.LAUNCHES)}")
     curr = cfg.output_directory / "entropic_curr.pth"
@@ -2155,11 +2165,16 @@ def swin_phase(torch, fl, out_dir):
     print(f"swin attention kernels: {names}")
     check(names == ["osi_win_flash_bwd", "osi_win_flash_fwd"],
           f"swin: attention kernels {names}")
+    names = sorted({k[:120] for k in kernels if any(
+        f in k.lower() for f in ("layer_norm", "layernorm", "gammabeta"))})
+    print(f"swin LayerNorm kernels: {names}")
+    check(names == ["osi_layer_norm_bwd", "osi_layer_norm_fwd"],
+          f"swin: LayerNorm kernels {names}")
     check(not any("roll_cuda_kernel" in k for k in kernels),
           "swin: torch.roll's kernel ran")
     del predictor, model
     torch.cuda.empty_cache()
-    return launches
+    return launches, ln_launches
 
 
 def main():
@@ -2317,7 +2332,7 @@ def main():
     print(f"phase optimize: ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    swin_launches = swin_phase(torch, fl, out_dir)
+    swin_launches, ln_launches = swin_phase(torch, fl, out_dir)
     print(f"phase swin: ok ({time.perf_counter() - t0:.1f} s)")
 
     # Each kernel's source, what it replaces, and its launches on its path.
@@ -2353,6 +2368,10 @@ def main():
          "none: F.scaled_dot_product_attention and the roll, partition, "
          "mask and merge copies of the Swin's written-out window attention",
          sum(swin_launches.values())),
+        ("layer_norm", "triton", f"{pkg}/ops/triton_layer_norm.py",
+         "none: torch's LayerNorm kernels, the bias and residual adds and "
+         "the gradient sums of the Swin's written-out residual junctions",
+         sum(ln_launches.values())),
     ]
     kernels = [dict(zip(("name", "route", "source", "replaces",
                          "launches"), row)) for row in rows]

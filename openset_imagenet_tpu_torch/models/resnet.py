@@ -97,6 +97,11 @@ class Dense(nn.Module):
             y = y + self.bias.to(x.dtype)
         return y
 
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The rounded product alone, for a caller that adds the bias
+        itself (the Swin's residual junctions)."""
+        return F.linear(x, self.weight.to(x.dtype))
+
 
 def _add_relu(y: torch.Tensor, residual: torch.Tensor,
               boundary_mask: bool) -> torch.Tensor:

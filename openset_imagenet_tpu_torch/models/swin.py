@@ -29,8 +29,22 @@ Stochastic depth and dropout are not built (each draws a mask a sample).
 The dtype policy is the ResNet's: parameters stay float32; the input and
 every kernel are cast to the compute dtype (bfloat16 by default) with
 explicit casts, not ``torch.autocast``; a dense bias is added after the
-product has been rounded.  LayerNorm takes its statistics in float32 and
-rounds its output to the compute dtype.  Attention runs through
+product has been rounded.  LayerNorm rounds its float32 scale and shift
+to the compute dtype, takes its statistics in float32 and rounds its
+output to the compute dtype.  Every LayerNorm runs through
+:mod:`..ops.layer_norm` (on the card one kernel each way, on the CPU its
+plain version), and each residual junction ``h = x + round(y + b)``
+whose sum a LayerNorm reads is fused with it (:meth:`LayerNorm.add`):
+``y`` is the ``proj`` or ``fc2`` product without its bias (``Dense.
+product``), ``b`` that Dense's bias, added in the junction after the
+product has been rounded, as ``Dense`` adds it.  A stage hands each
+block its input ``h`` and ``norm1(h)``; a block's second junction is
+fused with the next block's ``norm1`` (the last block of the last stage:
+with the model's final LayerNorm), so 45 of Swin-B's 53 LayerNorms take
+their junction with them.  The patch embedding's, each stage's first
+``norm1`` and patch merging's stand alone, and the end of a stage before
+patch merging is the written-out add (``x + (y + b)``), which the merge's
+concatenation reads.  Attention runs through
 :func:`..ops.window_attention.window_attention`: the ``qkv`` Dense is
 applied to the block's tokens in the map's own order (a per-token product
 commutes with any permutation of the tokens), and the op reads each
@@ -55,8 +69,9 @@ attn.proj, attn.relative_position_bias_table, norm2, mlp.fc1, mlp.fc2}.*``,
 are ``fc.*`` and ``logits.*``.
 
 Each block's attention (the ``qkv`` product, the window attention, the
-``proj`` product) is the device span ``swin.attention`` (:mod:`..tracing`);
-on the card, ``window_attention.LAUNCHES`` counts the kernels' launches.
+``proj`` product without its bias) is the device span ``swin.attention``
+(:mod:`..tracing`); on the card, ``window_attention.LAUNCHES`` and
+``layer_norm.LAUNCHES`` count the kernels' launches.
 """
 
 from __future__ import annotations
@@ -69,6 +84,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import tracing
+from ..ops.layer_norm import add_layer_norm, layer_norm
 from ..ops.window_attention import MASKED, window_attention
 from .resnet import Conv, Dense, _trunc_normal
 
@@ -77,9 +93,10 @@ LN_EPSILON = 1e-5
 
 class LayerNorm(nn.Module):
     """LayerNorm over the last dimension with float32 ``weight`` and
-    ``bias`` cast to the input's dtype; the statistics are taken in
-    float32 (torch's kernels accumulate a bfloat16 input in float32) and
-    the output is rounded to the input's dtype."""
+    ``bias`` rounded to the input's dtype; the statistics are taken in
+    float32 and the output is rounded to the input's dtype
+    (:mod:`..ops.layer_norm`: a kernel each way on the card, plain torch on
+    the CPU).  :meth:`add` fuses it with the residual junction before it."""
 
     def __init__(self, dim: int, device=None):
         super().__init__()
@@ -87,8 +104,15 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, self.weight.shape, self.weight.to(x.dtype),
-                            self.bias.to(x.dtype), LN_EPSILON)
+        return layer_norm(x, self.weight, self.bias, LN_EPSILON)
+
+    def add(self, x: torch.Tensor, y: torch.Tensor,
+            y_bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(h, self(h))`` with ``h = x + round(y + y_bias)``: the residual
+        ``x``, a Dense's product ``y`` without its float32 bias
+        ``y_bias``."""
+        return add_layer_norm(x, y, y_bias, self.weight, self.bias,
+                              LN_EPSILON)
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -148,8 +172,9 @@ class WindowAttention(nn.Module):
     def forward(self, x: torch.Tensor, ws: int, shift: int) -> torch.Tensor:
         """``x``: ``[B, H, W, C]`` tokens in the map's order -> ``[B, H, W,
         C]``: attention in the ``ws x ws`` windows of the map rolled by
-        ``-shift``, merged and rolled back."""
-        return self.proj(window_attention(
+        ``-shift``, merged and rolled back, through ``proj``'s product;
+        ``proj.bias`` is added at the junction after it."""
+        return self.proj.product(window_attention(
             self.qkv(x), self.relative_position_bias_table, ws, shift))
 
 
@@ -160,7 +185,9 @@ class Mlp(nn.Module):
         self.fc2 = Dense(hidden, dim, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        """``fc2``'s product, without ``fc2.bias`` (added at the junction
+        after it)."""
+        return self.fc2.product(F.gelu(self.fc1(x)))
 
 
 class SwinBlock(nn.Module):
@@ -189,14 +216,25 @@ class SwinBlock(nn.Module):
                              f"{ws}x{ws} windows")
         return ws, shift
 
+    def chain(self, h: torch.Tensor, n: torch.Tensor,
+              norm: Optional[LayerNorm]
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The block on the residual stream ``h`` and ``n = norm1(h)``:
+        ``(out, norm(out))``, each residual junction fused with the
+        LayerNorm after it (``norm2``, then ``norm``: the next block's
+        ``norm1`` or the model's final LayerNorm); ``(out, None)`` without
+        ``norm``, the last add written out."""
+        ws, shift = self.geometry(*h.shape[1:3])
+        with tracing.span("swin.attention", device=h.device):
+            y = self.attn(n, ws, shift)
+        h, n = self.norm2.add(h, y, self.attn.proj.bias)
+        y = self.mlp(n)
+        if norm is None:
+            return h + (y + self.mlp.fc2.bias.to(y.dtype)), None
+        return norm.add(h, y, self.mlp.fc2.bias)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h, w = x.shape[1:3]
-        ws, shift = self.geometry(h, w)
-        y = self.norm1(x)
-        with tracing.span("swin.attention", device=x.device):
-            y = self.attn(y, ws, shift)
-        x = x + y
-        return x + self.mlp(self.norm2(x))
+        return self.chain(x, self.norm1(x), None)[0]
 
 
 class PatchMerging(nn.Module):
@@ -227,10 +265,20 @@ class SwinStage(nn.Module):
         self.downsample = PatchMerging(dim, device=device) if downsample \
             else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for block in self.blocks:
-            x = block(x)
-        return x if self.downsample is None else self.downsample(x)
+    def forward(self, x: torch.Tensor,
+                norm: Optional[LayerNorm] = None) -> torch.Tensor:
+        """The stage's output map, downsampled where the stage merges
+        patches; ``norm(output)`` where ``norm`` is given to a stage
+        without patch merging (the model's final LayerNorm, fused into the
+        last junction).  Each block hands its output and the next block's
+        ``norm1`` of it to the next."""
+        norms = [block.norm1 for block in self.blocks[1:]]
+        h, n = x, self.blocks[0].norm1(x)
+        for block, after in zip(self.blocks, norms + [norm]):
+            h, n = block.chain(h, n, after)
+        if self.downsample is not None:
+            return self.downsample(h)
+        return h if norm is None else n
 
 
 class PatchEmbed(nn.Module):
@@ -241,7 +289,7 @@ class PatchEmbed(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW images -> ``[B, H / patch, W / patch, dim]`` tokens."""
-        return self.norm(self.proj(x).permute(0, 2, 3, 1))
+        return self.norm(self.proj(x).permute(0, 2, 3, 1).contiguous())
 
 
 class Swin(nn.Module):
@@ -280,9 +328,10 @@ class Swin(nn.Module):
         """``images``: float ``[B, H, W, 3]`` -> float32 (logits,
         features)."""
         x = self.patch_embed(images.permute(0, 3, 1, 2).to(self.dtype))
-        for stage in self.layers:
-            x = stage(x)
-        features = self.fc(self.norm(x).mean(dim=(1, 2)))
+        last = len(self.layers) - 1
+        for i, stage in enumerate(self.layers):
+            x = stage(x, self.norm if i == last else None)
+        features = self.fc(x.mean(dim=(1, 2)))
         logits = self.logits(features)
         return logits.float(), features.float()
 

@@ -496,6 +496,96 @@ def window_attention(device, stage, shift, dtype, batch):
         assert bn_rel(a, b) <= tol, (name, bn_rel(a, b))
 
 
+# -- the Swin's LayerNorm and residual junction (Triton) ----------------------
+
+# Swin-B's distinct LayerNorms at 224 px and batch 256: (rows, C, fused
+# with the junction).  Fused: each stage's junctions (the final
+# LayerNorm's too, at stage 4's shape); alone: the patch embedding's and
+# each stage's first norm1 at the stage's shape, patch merging's at 4C.
+LN_SITES = [(802816, 128, True), (200704, 256, True), (50176, 512, True),
+            (12544, 1024, True), (802816, 128, False), (200704, 256, False),
+            (50176, 512, False), (12544, 1024, False), (200704, 512, False),
+            (50176, 1024, False), (12544, 2048, False)]
+
+
+def ln_case(device, rows, c, dtype, seed=0):
+    """``x``, ``y``, the float32 ``b``, weight and bias, and the output
+    gradients of ``n`` and ``h``, drawn on the card."""
+    gen = torch.Generator(device=device).manual_seed(seed + rows + c)
+    draw = lambda *s, scale=1.0, shift=0.0: torch.randn(
+        *s, generator=gen, device=device) * scale + shift
+    return (draw(rows, c, scale=2.0, shift=0.5).to(dtype),
+            draw(rows, c).to(dtype), draw(c, scale=0.1),
+            draw(c, scale=0.3, shift=1.0), draw(c, scale=0.1),
+            draw(rows, c).to(dtype), draw(rows, c).to(dtype))
+
+
+def ln_run(x, y, b, w, beta, gn, gh):
+    """``(h, n, dx, dy, db, dweight, dbias)`` through the kernels (``y``
+    None: the LayerNorm alone; ``gh`` None: no gradient of ``h``)."""
+    from openset_imagenet_tpu_torch.ops import layer_norm as lnk
+
+    leaves = [t.clone().requires_grad_() if t is not None else None
+              for t in (x, y, b, w, beta)]
+    x, y, b, w, beta = leaves
+    if y is None:
+        h, n = x, lnk.layer_norm(x, w, beta, 1e-5)
+        n.backward(gn)
+    else:
+        h, n = lnk.add_layer_norm(x, y, b, w, beta, 1e-5)
+        torch.autograd.backward([n, h] if gh is not None else [n],
+                                [gn, gh] if gh is not None else [gn])
+    return [h.detach(), n.detach()] + [None if t is None else t.grad
+                                       for t in leaves]
+
+
+def layer_norm(device, site, dtype, grad_h=True):
+    """One launch each way; ``h`` bit-equal to the written-out add, ``n``
+    within one bfloat16 step (2**-7 of the larger, 1e-5 absolute where the
+    row cancels to near 0) of ``F.layer_norm``'s, ``dh`` within 1e-3
+    (bfloat16) or 1e-5 (float32) in norm of the plain formula's, the
+    weight and bias gradients within 1e-5 in norm, the ``b`` gradient the
+    float32 sum of the ``dh`` written within 1e-6 in norm (sums in another
+    order; against the plain version's ``dh`` it would inherit the few
+    elements where the two ``dh`` round apart: 1.28e-5 at the final
+    junction in bfloat16 on an H100); every output the same bits on a
+    second run."""
+    from openset_imagenet_tpu_torch.ops import layer_norm as lnk
+
+    rows, c, add = site
+    x, y, b, w, beta, gn, gh = ln_case(device, rows, c, dtype)
+    if not add:
+        y = b = gh = None
+    elif not grad_h:
+        gh = None
+    form = "ln_add" if add else "ln"
+    before = dict(lnk.LAUNCHES)
+    got = ln_run(x, y, b, w, beta, gn, gh)
+    assert lnk.LAUNCHES[f"{form}_fwd"] == before[f"{form}_fwd"] + 1
+    assert lnk.LAUNCHES[f"{form}_bwd"] == before[f"{form}_bwd"] + 1
+    again = ln_run(x, y, b, w, beta, gn, gh)
+    for a, r in zip(got, again):
+        assert (a is None) == (r is None)
+        assert a is None or torch.equal(a, r)
+    h, n, dx, dy, db, dw, dbeta = got
+    ph, pn, mean, rstd = lnk.layer_norm_plain(x, w, beta, 1e-5, y, b)
+    assert torch.equal(h, ph)
+    step = torch.maximum(n.float().abs(), pn.float().abs()) * 2 ** -7
+    worst = float(((n.float() - pn.float()).abs() - step).max())
+    assert worst <= 1e-5, ("n", worst)
+    want = lnk.layer_norm_grad_plain(gn, gh, ph, mean, rstd, w, add)
+    assert bn_rel(dx, want[0]) <= (1e-3 if dtype == torch.bfloat16
+                                   else 1e-5), ("dh", bn_rel(dx, want[0]))
+    if add:
+        assert torch.equal(dx, dy)
+        assert db.dtype == torch.float32
+        assert bn_rel(db, dx.float().sum(0)) <= 1e-6, (
+            "db", bn_rel(db, dx.float().sum(0)))
+    for name, a, r in (("dweight", dw, want[1]), ("dbias", dbeta, want[2])):
+        assert a.dtype == torch.float32 and bn_rel(a, r) <= 1e-5, (
+            name, bn_rel(a, r))
+
+
 # -- the main path --------------------------------------------------------------
 
 # Each kernel at its main path's shape, in the cells' dtype: (kernel,
@@ -504,7 +594,9 @@ def window_attention(device, stage, shift, dtype, batch):
 # take them, K5 and K6 at resnet50's stage-1 tail at batch 256, K7 at the
 # bench tool's [8, 3136, 256], int8_conv at resnet50's stage-1 3x3 conv at
 # batch 256, batch-norm at a resnet50 map at batch 256 with a window of 64
-# images, the window attention at Swin-B's four stages at batch 256.
+# images, the window attention at Swin-B's four stages at batch 256, the
+# LayerNorm fused at Swin-B's stages 1 and 3 and alone at patch merging's
+# 2,048 channels, at batch 256.
 MAIN_PATH = [
     ("entropic_fwd", entropic_fwd, (256, 116, 1.0)),
     ("entropic_bwd", entropic_bwd, (256, 116, 1.0)),
@@ -524,4 +616,6 @@ MAIN_PATH = [
     *(("window_attention", window_attention,
        (stage, 0 if stage == 3 else 3, torch.bfloat16, 256))
       for stage in range(4)),
+    *(("layer_norm", layer_norm, (LN_SITES[i], torch.bfloat16))
+      for i in (0, 2, 10)),
 ]

@@ -17,7 +17,10 @@ forward against the written-out batch-norm, their launches and
 refusals), and the Swin's window-attention kernels
 (``ops/window_attention.py``: output, qkv and table gradients against
 the plain version at Swin-B's four stage shapes, launches, bit-equal
-backwards, peak memory, refusals).  Marked ``cuda``: skipped where there is no
+backwards, peak memory, refusals), and the Swin's LayerNorm and residual
+junction (``ops/layer_norm.py``: h bit-equal, n, dh and the float32
+weight and bias gradients against the plain version at every distinct
+Swin-B shape, launches, the same bits twice, refusals).  Marked ``cuda``: skipped where there is no
 CUDA device (or, for the Triton kernels, no Triton).  On a
 GPU host run ``python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py`` (``--noconftest``: the suite's conftest imports
@@ -1497,3 +1500,81 @@ def test_window_attention_refuses_what_it_does_not_take(cuda):
         wak.window_attention(qkv.transpose(1, 2), table, 7, 3)
     with pytest.raises(ValueError, match="contiguous float32"):
         wak.window_attention(qkv, table.double(), 7, 3)
+
+
+# -- the LayerNorm and residual junction (ops/layer_norm.py, Triton) ---------
+# Kernel against plain on the card at every distinct (rows, C, form) of
+# Swin-B at batch 256 (cuda_checks.LN_SITES), in bf16 and float32, with
+# the bounds and reasons of cuda_checks.layer_norm; the final LayerNorm's
+# junction, whose h has no other gradient; widths that are not powers of
+# two or not multiples of 16, and a launch of one program.
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("site", cc.LN_SITES, ids=str)
+def test_layer_norm_kernel_matches_plain(cuda, site, dtype):
+    cc.layer_norm(cuda, site, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_final_junction_without_a_gradient_of_h(cuda, dtype):
+    cc.layer_norm(cuda, (12544, 1024, True), dtype, grad_h=False)
+
+
+@pytest.mark.parametrize("site", [(3, 96, True), (1000, 7, False),
+                                  (777, 2048, True), (1, 128, True),
+                                  (4099, 384, False)], ids=str)
+def test_layer_norm_ragged_shapes(cuda, site):
+    cc.layer_norm(cuda, site, torch.bfloat16)
+
+
+def test_layer_norm_refuses_what_it_does_not_take(cuda):
+    from openset_imagenet_tpu_torch.ops import layer_norm as lnk
+
+    x, y, b, w, beta, _, _ = cc.ln_case(cuda, 64, 128, torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+        lnk.layer_norm(x.double(), w, beta, 1e-5)
+    strided = x.view(8, 8, 128).transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous tensors"):
+        lnk.add_layer_norm(strided, strided, b, w, beta, 1e-5)
+    wide = torch.zeros(4, 4096, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 2048"):
+        lnk.layer_norm(wide, torch.ones(4096, device=cuda),
+                       torch.zeros(4096, device=cuda), 1e-5)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        lnk.add_layer_norm(x, y, b.half(), w, beta, 1e-5)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        lnk.layer_norm(x, w.cpu(), beta, 1e-5)
+
+
+def test_swin_step_runs_every_layer_norm_through_the_kernels(cuda):
+    """A tiny_swin forward and backward on the card: 4 LayerNorms alone and
+    7 fused with their junction, one launch each way, and no other
+    LayerNorm kernel (profiler names); under ``torch.inference_mode`` the
+    forwards alone, with the same logits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from openset_imagenet_tpu_torch import train as engine
+    from openset_imagenet_tpu_torch.config import NameSpace
+    from openset_imagenet_tpu_torch.ops import layer_norm as lnk
+
+    model = engine.build_model(
+        NameSpace({"model": {"arch": "swin", "variant": "tiny_swin"}}), 6,
+        device=cuda).train()
+    x = torch.rand(8, 32, 32, 3, device=cuda)
+    before = dict(lnk.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logits, _ = model(x)
+        logits.float().sum().backward()
+        torch.cuda.synchronize()
+    step = {k: lnk.LAUNCHES[k] - before[k] for k in before}
+    assert step == {"ln_fwd": 4, "ln_add_fwd": 7, "ln_bwd": 4,
+                    "ln_add_bwd": 7}
+    names = {e.name for e in prof.events() if any(
+        f in e.name.lower() for f in ("layer_norm", "layernorm",
+                                      "gammabeta"))}
+    assert names == {"osi_layer_norm_fwd", "osi_layer_norm_bwd"}, names
+    with torch.inference_mode():
+        again, _ = model(x)
+    assert lnk.LAUNCHES["ln_add_fwd"] == before["ln_add_fwd"] + 14
+    assert lnk.LAUNCHES["ln_add_bwd"] == before["ln_add_bwd"] + 7
+    assert torch.equal(again, logits.detach())

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The loss kernels, K5, K6, int8_conv and the train step of two checkouts of
-the PyTorch port, in turns.
+"""The loss kernels, K5, K6, int8_conv, the LayerNorm junction and the train
+step of two checkouts of the PyTorch port, in turns.
 
-    python tools/ab_torch_kernels.py --parent build/parent [--steps 10]
+    python tools/ab_torch_kernels.py --parent build/parent [--steps 10] \
+        [--only layer_norm,k5]
 
 ``--parent`` is another checkout of the repository (for example the parent
 commit unpacked with ``git archive <commit> | tar -x -C build/parent``;
@@ -43,6 +44,18 @@ turn measures, on the card:
   from a fixed seed, beside the card's bound for its bytes and int8
   operations (``tools._card.bound_ms`` at ``INT8_OP_PER_S``); and the 52
   convolutions of one forward, each shape times its count, in both;
+* the Swin's residual junction fused with its LayerNorm
+  (``ops.layer_norm``) in bfloat16 at Swin-B's stage 1 ([802816, 128])
+  and stage 3 ([50176, 512]) at batch 256: device µs per call of the
+  forward (``add_layer_norm``) and of the backward kernel (given the
+  gradients of ``n`` and ``h``) from graph replays of 20 calls, beside
+  the bound of their bytes (read ``x`` and ``y``, write ``h`` and ``n``;
+  read the two gradients and ``h``, write ``dh``; the statistics) and
+  beside the written-out path the port ran before (the bias and residual
+  adds with ``F.layer_norm``; ``native_layer_norm_backward``, the
+  gradients' sum, the bias gradient's sum and the casts back to float32),
+  which the port no longer calls; nothing in a checkout without
+  ``ops.layer_norm``;
 * the train step of a full-width resnet50 (116 classes, random weights
   from seed 0, ghost batch-norm over 64 rows, entropic loss, Adam at lr
   1e-3, bfloat16, channels_last, batch 256 of device-resident uint8), in
@@ -52,9 +65,11 @@ turn measures, on the card:
   per step and, in the fused form, K5's device ms per step (its kernels:
   ``site_*`` and ``reduce_partials``) and its launches of each kernel.
 
-Each turn prints one JSON line (``{"turn": ..., "root": ..., ...}``); the
-last lines are a table of every number by turn.  Without a CUDA device it
-exits non-zero.
+``--only`` names the groups a turn measures (``k3``, ``entropic``,
+``weighted_ce``, ``k5``, ``k6``, ``int8``, ``layer_norm``, ``train``; all by
+default).  Each turn prints one JSON line (``{"turn": ..., "root": ...,
+...}``); the last lines are a table of every number by turn.  Without a
+CUDA device it exits non-zero.
 """
 
 import argparse
@@ -304,6 +319,57 @@ def int8(torch, ic):
     return out
 
 
+def layer_norm(torch):
+    import importlib.util
+
+    import torch.nn.functional as F
+
+    from openset_imagenet_tpu_torch.tools import _card
+
+    if importlib.util.find_spec("openset_imagenet_tpu_torch.ops.layer_norm") \
+            is None:
+        return {}
+    from openset_imagenet_tpu_torch.ops import layer_norm as lnk
+
+    out, dt, eps = {}, torch.bfloat16, 1e-5
+    for name, rows, c in (("stage1", 802816, 128), ("stage3", 50176, 512)):
+        gen = torch.Generator(device="cuda").manual_seed(rows + c)
+        draw = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+        x, y, gn, gh = (draw(rows, c).to(dt) for _ in range(4))
+        b, w, beta = draw(c) * 0.1, draw(c) * 0.3 + 1.0, draw(c) * 0.1
+        unit = rows * c * dt.itemsize
+        h, n, mean, rstd = lnk._forward(x, w, beta, eps, y, b)
+        key = f"[{name} {rows}x{c}]"
+        out[f"ln_fwd_us{key}"] = 1e3 * graph_ms(
+            torch, lambda: lnk.add_layer_norm(x, y, b, w, beta, eps), 20)
+        out[f"ln_bwd_us{key}"] = 1e3 * graph_ms(
+            torch, lambda: lnk._backward(gn, gh, h, mean, rstd, w, True), 20)
+        for way in ("fwd", "bwd"):
+            out[f"ln_{way}_bound_us{key}"] = 1e3 * _card.bound_ms(
+                4 * unit + 8 * rows)[0]
+        w_dt, beta_dt = w.to(dt), beta.to(dt)
+
+        def written_fwd():
+            hh = x + (y + b.to(dt))
+            return F.layer_norm(hh, (c,), w.to(dt), beta.to(dt), eps)
+
+        _, tmean, trstd = torch.native_layer_norm(h, (c,), w_dt, beta_dt,
+                                                  eps)
+
+        def written_bwd():
+            dx, dw, db = torch.ops.aten.native_layer_norm_backward(
+                gn, h, (c,), tmean, trstd, w_dt, beta_dt,
+                [True, True, True])
+            dh = gh + dx
+            return dh, dh.sum(0).float(), dw.float(), db.float()
+
+        out[f"written_fwd_us{key}"] = 1e3 * graph_ms(torch, written_fwd, 20)
+        out[f"written_bwd_us{key}"] = 1e3 * graph_ms(torch, written_bwd, 20)
+        del x, y, gn, gh, h, n
+        torch.cuda.empty_cache()
+    return out
+
+
 def train(torch, fused, steps):
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
@@ -360,7 +426,11 @@ def train(torch, fused, steps):
     return out
 
 
-def one_turn(turn, root, steps):
+GROUPS = ("k3", "entropic", "weighted_ce", "k5", "k6", "int8", "layer_norm",
+          "train")
+
+
+def one_turn(turn, root, steps, only):
     sys.path.insert(0, str(root))
     import torch
 
@@ -381,14 +451,16 @@ def one_turn(turn, root, steps):
 
     result = {"turn": turn, "root": str(root),
               "device": torch.cuda.get_device_name(0)}
-    result.update(k3(torch, fl))
-    result.update(entropic(torch, fl))
-    result.update(weighted_ce(torch, fl))
-    result.update(k5(torch, fbb))
-    result.update(k6(torch, ss))
-    result.update(int8(torch, ic))
-    result.update(train(torch, False, steps))
-    result.update(train(torch, True, steps))
+    groups = {"k3": lambda: k3(torch, fl),
+              "entropic": lambda: entropic(torch, fl),
+              "weighted_ce": lambda: weighted_ce(torch, fl),
+              "k5": lambda: k5(torch, fbb), "k6": lambda: k6(torch, ss),
+              "int8": lambda: int8(torch, ic),
+              "layer_norm": lambda: layer_norm(torch),
+              "train": lambda: {**train(torch, False, steps),
+                                **train(torch, True, steps)}}
+    for group in only:
+        result.update(groups[group]())
     print(json.dumps(result), flush=True)
     return 0
 
@@ -398,11 +470,16 @@ def main(argv=None):
     ap.add_argument("--parent", required=True,
                     help="the other checkout (its repository root)")
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated groups to measure (default: all)")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    only = args.only.split(",")
+    if set(only) - set(GROUPS):
+        ap.error(f"--only takes groups of {GROUPS}, got {args.only}")
     if args.turn:
-        return one_turn(args.turn, pathlib.Path(args.root), args.steps)
+        return one_turn(args.turn, pathlib.Path(args.root), args.steps, only)
 
     parent = pathlib.Path(args.parent).resolve()
     if not (parent / "openset_imagenet_tpu_torch").is_dir():
@@ -422,7 +499,7 @@ def main(argv=None):
         proc = subprocess.run(
             [sys.executable, str(pathlib.Path(__file__).resolve()),
              "--parent", str(parent), "--steps", str(args.steps),
-             "--turn", turn, "--root", str(root)],
+             "--only", args.only, "--turn", turn, "--root", str(root)],
             cwd=root, capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
         if proc.returncode or not lines:
@@ -430,7 +507,8 @@ def main(argv=None):
             return proc.returncode or 1
         turns.append(json.loads(lines[-1]))
         print(lines[-1], flush=True)
-    keys = [k for k in turns[0] if k not in ("turn", "root", "device")]
+    keys = list(dict.fromkeys(k for t in turns for k in t
+                              if k not in ("turn", "root", "device")))
     print("metric".ljust(34) + "".join(t["turn"].rjust(14) for t in turns))
     for key in keys:
         cells = []
